@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Smoke run of acoustid_index_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py    # one card, ~5 minutes; exits 2 without CUDA
+
+Phases, each fatal on failure:
+  0. device: the card's name and power limit (nvidia-smi), CUDA present.
+  1. kernels: build K1 block_count and K2 block_count_emit from
+     acoustid_index_tpu_torch/csrc, run them on a 64K-block table at the
+     serving path's lookup count (256 queries x 128 hashes + the straddle
+     tail) and hold them bit for bit against their plain PyTorch versions;
+     time both with CUDA events.
+  2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
+     = 240M postings): bulk-load through the port's MultiIndex, checkpoint
+     to disk, then reopen and serve through the CLI's own entry
+     (acoustid_index_tpu_torch.main.build_server) in this process, so the
+     launch counters can be read, and send >= 256 searches from 32 client
+     threads; every answer must equal tests/oracle.py over the corpus, which
+     this script sorts itself.  Then writes over HTTP (1,000 new docs,
+     re-inserts, deletes): every acknowledged write must read back and
+     deleted docs must vanish.  Then docs that share one hot hash, and
+     queries for them that must take the search program's matrix branch and
+     its sort branch.  K1's and K2's launch counters must grow during this
+     phase.
+  3. the CLI entry: `python -m acoustid_index_tpu_torch.main --port 0`
+     serves a PUT and a search, and stops on SIGTERM.
+
+The last three lines of stdout are the card's nvidia-smi line, a JSON
+object of per-kernel results, and {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import select
+import shutil
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N_REQUESTS = 512  # phase-2 searches of the read phase (>= 256)
+THREADS = 32
+QUERY_OPTS = {"limit": 10, "min_score": 6, "score_pct": 10, "timeout": 10_000}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def cuda_ms(fn, n: int) -> float:
+    """Mean ms per call over n calls, CUDA events, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase1_kernels(dev):
+    import numpy as np
+    import torch
+
+    from acoustid_index_tpu_torch.ops import _build
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.ops.layout import BLOCK, to_storage
+
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"phase1: kernels built in {time.perf_counter() - t0:.3f} s "
+        f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+
+    nblk = 65536
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = nblk * BLOCK
+    h = torch.sort(torch.randint(0, 0xFFFFFFFF, (n,), generator=g, device=dev, dtype=torch.int64)).values
+    # Equal runs across every 97th block boundary, and sentinel padding.
+    for b in range(1, nblk, 97):
+        h[b * BLOCK - 3 : b * BLOCK + 5] = h[b * BLOCK].item()
+    h[-3000:] = 0xFFFFFFFF
+    d = torch.randint(1, 0xFFFFFFFF, (n,), generator=g, device=dev, dtype=torch.int64)
+    hashes = to_storage(h)
+    inter = torch.stack([hashes.view(nblk, BLOCK), to_storage(d).view(nblk, BLOCK)], 1).reshape(-1).contiguous()
+
+    # The serving path's lookup stream: B*Q landing lookups + the w_cap tail.
+    L = 256 * 128 + 2048
+    pos = torch.randint(0, n, (L,), generator=g, device=dev)
+    blk = (pos // BLOCK).to(torch.int32)
+    q = h[pos]
+    q[1::7] = torch.randint(0, 0xFFFFFFFF, q[1::7].shape, generator=g, device=dev)  # misses
+    q[2::13] = 0xFFFFFFFF  # sentinel queries count the padding
+    blk[3::29] = 0  # dead lanes point at block 0
+
+    cases = [
+        ("block_count", "stride1", lambda: bl.block_count(hashes, blk, q, 1), lambda: bl.block_count_plain(hashes, blk, q, 1)),
+        ("block_count", "stride2", lambda: bl.block_count(inter, blk, q, 2), lambda: bl.block_count_plain(inter, blk, q, 2)),
+        ("block_count_emit", "emit", lambda: bl.block_count_emit(inter, blk, q), lambda: bl.block_count_emit_plain(inter, blk, q)),
+    ]
+    results = {}
+    for name, label, kern, plain in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+        check(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}/{label} differs from its plain version (max abs err {err})")
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
+        log(f"phase1: {name}/{label} L={L} bit-equal to plain; kernel {ms:.4f} ms ({ms * 1e3 / L:.4f} us/lookup), "
+            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / L:.4f} us/lookup)")
+        results[(name, label)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "L": L}
+    del h, d, hashes, inter
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+class BaseSegment:
+    """The bulk-loaded corpus as one oracle segment: (hash, docid) sorted,
+    every doc 1..n_docs alive (duck-typed for tests/oracle.py)."""
+
+    def __init__(self, hashes, docids, n_docs):
+        self.hashes, self.docids, self.n_docs = hashes, docids, n_docs
+        self.docs = self  # `docid in seg.docs`
+
+    def __contains__(self, docid):
+        return 1 <= docid <= self.n_docs
+
+    def postings(self, h):
+        import numpy as np
+
+        lo = np.searchsorted(self.hashes, np.uint32(h), side="left")
+        hi = np.searchsorted(self.hashes, np.uint32(h), side="right")
+        return self.docids[lo:hi].tolist()
+
+
+def run_searches(base: str, queries):
+    """POST every query from THREADS client threads; returns (responses in
+    query order, wall seconds, per-request seconds)."""
+    import requests
+
+    out = [None] * len(queries)
+    lat = [0.0] * len(queries)
+    nxt = [0]
+    lock = threading.Lock()
+    errors = []
+
+    def worker():
+        s = requests.Session()
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(queries):
+                return
+            try:
+                t0 = time.perf_counter()
+                r = s.post(f"{base}/main/_search", json={"query": queries[i], **QUERY_OPTS}, timeout=60)
+                lat[i] = time.perf_counter() - t0
+                out[i] = (r.status_code, r.json())
+            except Exception as exc:  # noqa: BLE001 -- reported below
+                errors.append(repr(exc))
+                return
+
+    ts = [threading.Thread(target=worker) for _ in range(THREADS)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"search requests failed: {errors[:3]}")
+    return out, wall, lat
+
+
+def check_answers(queries, answers, segments, label):
+    from oracle import oracle_search
+
+    for q, (status, body) in zip(queries, answers):
+        check(status == 200, f"{label}: HTTP {status}: {body}")
+        got = [(r["id"], r["score"]) for r in body["results"]]
+        want = oracle_search(segments, q, limit=QUERY_OPTS["limit"], min_score=QUERY_OPTS["min_score"], pct=QUERY_OPTS["score_pct"])
+        check(got == want, f"{label}: query answer {got[:3]} != oracle {want[:3]}")
+
+
+def post_updates(base: str, changes) -> None:
+    import requests
+
+    for lo in range(0, len(changes), 100):
+        r = requests.post(f"{base}/main/_update", json={"changes": changes[lo : lo + 100]}, timeout=60)
+        check(r.status_code == 200, f"_update failed: {r.status_code} {r.text}")
+
+
+def phase2_serving(n_docs: int, n_requests: int):
+    import numpy as np
+    import requests
+
+    from acoustid_index_tpu_torch import main as cli
+    from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, doc_hashes, make_query, sorted_corpus
+    from acoustid_index_tpu_torch.multi.multi_index import MultiIndex
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.ops import search_kernel as sk
+    from acoustid_index_tpu_torch.utils.device import device
+    from oracle import OracleSegment
+
+    dev = device()
+    stats = {"docs": n_docs, "postings": n_docs * HASHES_PER_DOC}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    served = None
+    try:
+        # Bulk load with the index's maintenance thread stopped, so that no
+        # background memory merge can abort the one forced checkpoint that
+        # writes the whole load as one file segment.  (Index.flush() merges
+        # the memory tier on the host before it checkpoints: 527 s at this
+        # scale on the H100 machine, against ~115 s for the checkpoint alone.)
+        t0 = time.perf_counter()
+        loader = BatchingSearcher()
+        mi = MultiIndex.open(tmp, searcher=loader, checkpoint_age=None,
+                             checkpoint_threshold=n_docs * HASHES_PER_DOC + 1, sync=False)
+        mi.create_index("main")
+        ref = mi._get_ref("main")
+        try:
+            ref.index.stop()
+            step = 1_000_000
+            for lo in range(1, n_docs + 1, step):
+                ids = np.arange(lo, min(lo + step, n_docs + 1), dtype=np.uint32)
+                ref.index.bulk_insert(ids, doc_hashes(ids))
+            stats["bulk_insert_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            ref.index.checkpoint(force=True)
+            stats["checkpoint_s"] = time.perf_counter() - t1
+            check(not ref.index.acquire_reader().memory, "the checkpoint left memory segments")
+        finally:
+            mi._release_ref(ref)
+        mi.close()
+        loader.close()
+        log(f"phase2: ingested {n_docs} docs in {stats['bulk_insert_s']:.1f} s, checkpointed to disk in {stats['checkpoint_s']:.1f} s")
+
+        # Reopen and serve as the CLI does, with a fresh process-wide searcher.
+        t1 = time.perf_counter()
+        args = cli.build_parser().parse_args(["--dir", tmp, "--host", "127.0.0.1", "--port", "0", "--checkpoint-age-ms", "0"])
+        served = cli.build_server(args)
+        server, mi, _ = served
+        stats["reopen_s"] = time.perf_counter() - t1
+        ref = mi._get_ref("main")
+        index = ref.index
+        mi._release_ref(ref)
+        snap = index.ensure_views(index.acquire_reader())
+        check(not snap.memory and len(snap.file) == 1, "reopened index is not one file segment")
+        inter = snap.file_view.get("inter")
+        check(inter is not None, "file tier did not take the interleaved layout")
+        check(inter.device.type == dev.type, f"file tier on {inter.device}, expected {dev}")
+        stats["file_tier_bytes"] = inter.numel() * 4
+        log(f"phase2: reopened from disk in {stats['reopen_s']:.1f} s; file tier inter {inter.numel() * 4 / 2**30:.2f} GiB on {inter.device}")
+        del snap, inter
+
+        t1 = time.perf_counter()
+        base_seg = BaseSegment(*sorted_corpus(n_docs, dev), n_docs)
+        stats["oracle_sort_s"] = time.perf_counter() - t1
+
+        server.serve_background()
+        base = f"http://127.0.0.1:{server.port}"
+
+        rng = np.random.default_rng(7)
+        targets = rng.integers(1, n_docs + 1, n_requests, dtype=np.uint32)
+        th = doc_hashes(targets)
+        queries = [make_query(rng, th[i]) for i in range(n_requests)]
+
+        # ---- the main path: counters from zero, then HTTP traffic ----
+        for k in bl.LAUNCHES:
+            bl.LAUNCHES[k] = 0
+        stats0 = dict(sk.STATS)
+        answers, wall, lat = run_searches(base, queries)
+        check_answers(queries, answers, [base_seg], "read phase")
+        hits = sum(1 for (_, body), t in zip(answers, targets) if body["results"] and body["results"][0]["id"] == int(t))
+        p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
+        stats.update(search_requests=n_requests, search_wall_s=wall, search_qps=n_requests / wall, target_top1=hits,
+                     latency_p50_ms=p50, latency_p99_ms=p99, read_branches={k: sk.STATS[k] - stats0[k] for k in sk.STATS})
+        log(f"phase2: {n_requests} searches from {THREADS} threads in {wall:.3f} s = {n_requests / wall:.1f} qps "
+            f"(wall clock), latency p50 {p50:.2f} ms p99 {p99:.2f} ms; all equal the oracle; "
+            f"target ranked first in {hits}/{n_requests}; batches {stats['read_branches']}")
+
+        # ---- writes over HTTP: new docs, re-inserts, deletes ----
+        n_new = 1000
+        new_ids = np.arange(n_docs + 1, n_docs + 1 + n_new, dtype=np.uint32)
+        new_h = doc_hashes(new_ids)
+        reins = [int(t) for t in targets[:5]]
+        reins_h = doc_hashes(np.asarray(reins, np.uint32) + np.uint32(3_000_000_000))
+        dels = [int(t) for t in targets[5:10]]
+        t1 = time.perf_counter()
+        post_updates(base, [{"insert": {"id": int(i), "hashes": new_h[k].tolist()}} for k, i in enumerate(new_ids)])
+        for k, i in enumerate(reins):
+            r = requests.put(f"{base}/main/{i}", json={"hashes": reins_h[k].tolist()}, timeout=60)
+            check(r.status_code == 200, f"PUT failed: {r.status_code} {r.text}")
+        for i in dels:
+            r = requests.delete(f"{base}/main/{i}", timeout=60)
+            check(r.status_code == 200, f"DELETE failed: {r.status_code} {r.text}")
+        stats["writes_s"] = time.perf_counter() - t1
+
+        latest = {int(i): new_h[k].tolist() for k, i in enumerate(new_ids)}
+        latest.update({i: reins_h[k].tolist() for k, i in enumerate(reins)})
+        items = [(h, d) for d, hs in latest.items() for h in hs]
+        segments = [base_seg, OracleSegment(items, {**{d: True for d in latest}, **{d: False for d in dels}})]
+
+        mem_view = index.ensure_views(index.acquire_reader()).mem_view
+        mem_cap = int(mem_view["hashes"].shape[0]) if "hashes" in mem_view else None
+        check(mem_cap is not None and mem_cap > 4096, f"memory tier cap {mem_cap}: not on the resident path")
+
+        q_new = [make_query(rng, new_h[k]) for k in range(n_new)]
+        q_old = queries[:10] + [make_query(rng, reins_h[k]) for k in range(5)]
+        answers_new, wall_new, _ = run_searches(base, q_new + q_old)
+        check_answers(q_new + q_old, answers_new, segments, "after writes")
+        for k, i in enumerate(new_ids):
+            top = answers_new[k][1]["results"]
+            check(top and top[0]["id"] == int(i), f"new doc {i} does not read back first: {top[:2]}")
+        for (_, body) in answers_new[n_new : n_new + 10]:
+            check(not any(r["id"] in dels for r in body["results"]), "a deleted doc was returned")
+        for i in dels:
+            check(requests.get(f"{base}/main/{i}", timeout=60).status_code == 404, f"deleted doc {i} still found")
+        for i in list(new_ids[:20]) + reins:
+            check(requests.head(f"{base}/main/{int(i)}", timeout=60).status_code == 200, f"doc {i} not found")
+        log(f"phase2: {n_new} new docs, {len(reins)} re-inserts, {len(dels)} deletes in {stats['writes_s']:.2f} s; "
+            f"{len(q_new) + len(q_old)} searches equal the oracle; every write reads back; deleted docs gone; "
+            f"memory tier cap {mem_cap} (resident path)")
+
+        # ---- heavy queries: docs sharing one hot hash, over HTTP ----
+        # A query for one of them gathers the hot hash's whole memory-tier
+        # run: over P_MEM_DIRECT postings rules out the direct branch; with
+        # at most P_SMALL in all the batch takes the matrix branch, above it
+        # the sort branch.  Each group is sent alone, so every batch of it
+        # takes its branch.
+        next_id = n_docs + 1 + n_new
+        for branch, n_hot, hot_hash in (("matrix", sk.P_MEM_DIRECT + 36, 0x5EED0001), ("sort", sk.P_SMALL + 44, 0x5EED0002)):
+            hot_ids = np.arange(next_id, next_id + n_hot, dtype=np.uint32)
+            next_id += n_hot
+            hot_h = doc_hashes(hot_ids)
+            hot_h[:, 0] = hot_hash
+            post_updates(base, [{"insert": {"id": int(i), "hashes": hot_h[k].tolist()}} for k, i in enumerate(hot_ids)])
+            segments.append(OracleSegment([(h, int(d)) for d, hs in zip(hot_ids, hot_h.tolist()) for h in hs],
+                                          {int(d): True for d in hot_ids}))
+            q_hot = [make_query(rng, hot_h[k]) for k in range(min(n_hot, 64))]
+            before = dict(sk.STATS)
+            answers_hot, _, _ = run_searches(base, q_hot)
+            ran = {k: sk.STATS[k] - before[k] for k in ("direct", "matrix", "sort")}
+            check_answers(q_hot, answers_hot, segments, f"hot hash, {branch} branch")
+            for k, (_, body) in enumerate(answers_hot):
+                check(body["results"] and body["results"][0]["id"] == int(hot_ids[k]), f"hot doc {hot_ids[k]} not first: {body['results'][:2]}")
+            check(ran[branch] > 0 and sum(ran.values()) == ran[branch], f"{branch} queries ran the batches {ran}")
+            stats[f"hot_{branch}"] = {"docs": n_hot, "searches": len(q_hot), "batches": ran}
+            log(f"phase2: {n_hot} docs sharing hash {hot_hash:#x}; {len(q_hot)} searches equal the oracle, "
+                f"every batch on the {branch} branch {ran}")
+
+        stats["launches"] = dict(bl.LAUNCHES)
+        stats["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
+        log(f"phase2: launches during serving {stats['launches']}; batches/branches/host syncs {stats['branches']}")
+        return stats
+    finally:
+        if served is not None:
+            cli.stop_server(*served)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def phase3_cli():
+    import requests
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--dir", tmp, "--port", "0"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
+    )
+    try:
+        line, deadline = "", time.time() + 180
+        while not line.startswith("LISTENING"):
+            left = deadline - time.time()
+            check(left > 0 and proc.poll() is None, "CLI server did not print LISTENING")
+            if select.select([proc.stdout], [], [], left)[0]:
+                line = proc.stdout.readline()
+        base = f"http://127.0.0.1:{int(line.split()[1])}"
+        check(requests.put(f"{base}/cli", timeout=60).status_code == 200, "CLI: PUT index failed")
+        check(requests.put(f"{base}/cli/9", json={"hashes": [11, 22, 33, 44]}, timeout=60).status_code == 200, "CLI: PUT doc failed")
+        r = requests.post(f"{base}/cli/_search", json={"query": [22, 33, 44, 55], "timeout": 10_000}, timeout=60)
+        check(r.status_code == 200 and r.json()["results"] == [{"id": 9, "score": 3}], f"CLI search: {r.status_code} {r.text}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"CLI server exited {rc} on SIGTERM")
+        log("phase3: CLI entry served PUT + search and stopped on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- main
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "acoustid_index_tpu_torch")) or not os.path.isdir(os.path.join(HERE, "acoustid_index_tpu")):
+        print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is unavailable: chip_smoke.py needs a card", file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, N_DOCS
+    from acoustid_index_tpu_torch.utils.device import device
+
+    dev = device()
+    check(dev.type == "cuda", f"the port's device is {dev}, not the card")
+    smi = nvidia_smi_line()
+    log(f"phase0: nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    kern = phase1_kernels(dev)
+    log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
+    serving = phase2_serving(N_DOCS, N_REQUESTS)
+    check(serving["launches"]["block_count"] > 0, "K1 block_count never launched on the serving path")
+    check(serving["launches"]["block_count_emit"] > 0, "K2 block_count_emit never launched on the serving path")
+    phase3_cli()
+    check("jax" not in sys.modules, "jax was imported")
+
+    total = time.perf_counter() - t_start
+    detail = {"phase1": {f"{a}/{b}": v for (a, b), v in kern.items()}, "phase2": serving, "total_s": total, "nvidia_smi": smi}
+    print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
+    log(f"total {total:.1f} s")
+
+    k2 = kern[("block_count_emit", "emit")]
+    k1 = kern[("block_count", "stride2")]
+    kernels = [
+        {
+            "name": "block_count", "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
+            "replaces": "acoustid_index_tpu/ops/pallas_lookup.py:256",
+            "also_replaces": ["acoustid_index_tpu/ops/pallas_lookup.py:172", "acoustid_index_tpu/ops/pallas_lookup.py:484"],
+            "launches": serving["launches"]["block_count"], "max_abs_err": max(k1["max_abs_err"], kern[("block_count", "stride1")]["max_abs_err"]),
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "lookups": k1["L"],
+        },
+        {
+            "name": "block_count_emit", "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
+            "replaces": "acoustid_index_tpu/ops/pallas_lookup.py:347",
+            "also_replaces": ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
+            "launches": serving["launches"]["block_count_emit"], "max_abs_err": k2["max_abs_err"],
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "lookups": k2["L"],
+        },
+    ]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
