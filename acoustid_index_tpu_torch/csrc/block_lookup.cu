@@ -1,7 +1,7 @@
 // Block-lookup kernels for Hopper (sm_90a), bound to Python with ctypes
 // (acoustid_index_tpu_torch/ops/_build.py, ops/block_lookup.py).
 //
-// Contract shared by both kernels.  A table is a flat array of u32 hashes
+// Contract shared by the kernels.  A table is a flat array of u32 hashes
 // cut into blocks of BLOCK = 1024 entries; with `stride` 2 (the interleaved
 // layout, ops/layout.py) block b's hashes sit at [b*2048, b*2048+1024) and
 // its docids at [b*2048+1024, b*2048+2048).  For lookup j with block id
@@ -14,15 +14,20 @@
 //
 // K1 block_count replaces the TPU kernels block_lookup,
 // block_lookup_wave and block_lookup_resident (unmasked mode) of
-// acoustid_index_tpu/ops/pallas_lookup.py.  K2 block_count_emit replaces
-// block_lookup_emit and block_lookup_emit_wave: after the count it also
+// acoustid_index_tpu/ops/pallas_lookup.py.  K1m block_count_masked replaces
+// block_lookup_resident's masked mode (lo_b/hi_b, pallas_lookup.py:496-537):
+// K1 at stride 1 that counts only the entries whose absolute index
+// blk*1024 + i lies in [lo_b[j], hi_b[j]), for top indexes that concatenate
+// several sorted runs so that one block can span two of them.  K2
+// block_count_emit replaces block_lookup_emit and block_lookup_emit_wave:
+// after the count it also
 // copies docid rows r = min(lt >> 7, 7) and min(r + 1, 7) of the block
 // (2 x 128 u32) to rows[j], so the direct candidate stage reads each run's
 // leading docids without a per-posting gather.
 //
 // What bounds them on the card: each lookup reads one random 4 KB block of
-// hashes (plus 1 KB of docid rows for K2) and does 1024 compares, so a call
-// of L lookups moves ~L x 4 KB (K2: ~L x 5 KB) from scattered addresses --
+// hashes (plus 1 KB of docid rows for K2, 8 bytes of bounds for K1m) and
+// does 1024 compares, so a call of L lookups moves ~L x 4 KB (K2: ~L x 5 KB) from scattered addresses --
 // memory latency and DRAM transactions, not arithmetic.  The design keeps
 // every byte of those reads useful: one warp per lookup, each lane issuing
 // 16-byte loads at consecutive addresses (a warp instruction fetches 512
@@ -85,6 +90,52 @@ block_count_kernel(const uint32_t* __restrict__ table,
   }
 }
 
+// K1's count restricted to absolute entries in [lo, hi); `first` is the
+// absolute index of the block's entry 0.
+__device__ __forceinline__ unsigned in_span(int64_t k, int64_t lo, int64_t hi) {
+  return (unsigned)(k >= lo && k < hi);
+}
+
+__device__ __forceinline__ void warp_count_masked(const uint32_t* __restrict__ hashes,
+                                                  uint32_t q, int lane, int64_t first,
+                                                  int64_t lo, int64_t hi,
+                                                  unsigned* lt, unsigned* eq) {
+  const uint4* v = reinterpret_cast<const uint4*>(hashes);
+  unsigned l = 0, e = 0;
+#pragma unroll
+  for (int i = 0; i < VEC_PER_LANE; ++i) {
+    uint4 x = __ldg(v + i * 32 + lane);
+    const int64_t k = first + (int64_t)(i * 32 + lane) * 4;  // entry of x.x
+    const unsigned m0 = in_span(k, lo, hi), m1 = in_span(k + 1, lo, hi);
+    const unsigned m2 = in_span(k + 2, lo, hi), m3 = in_span(k + 3, lo, hi);
+    l += (m0 & (x.x < q)) + (m1 & (x.y < q)) + (m2 & (x.z < q)) + (m3 & (x.w < q));
+    e += (m0 & (x.x == q)) + (m1 & (x.y == q)) + (m2 & (x.z == q)) + (m3 & (x.w == q));
+  }
+  *lt = __reduce_add_sync(0xffffffffu, l);
+  *eq = __reduce_add_sync(0xffffffffu, e);
+}
+
+__global__ void __launch_bounds__(WARPS_PER_CTA * 32)
+block_count_masked_kernel(const uint32_t* __restrict__ table,
+                          const int32_t* __restrict__ blk,
+                          const uint32_t* __restrict__ q,
+                          const int32_t* __restrict__ lo_b,
+                          const int32_t* __restrict__ hi_b,
+                          int32_t* __restrict__ lt_out,
+                          int32_t* __restrict__ eq_out,
+                          int64_t L, int64_t nblk) {
+  const int lane = threadIdx.x & 31;
+  const int64_t j = (int64_t)blockIdx.x * WARPS_PER_CTA + (threadIdx.x >> 5);
+  if (j >= L) return;
+  const int64_t first = block_base(blk, j, nblk, 1);  // stride 1: offset == entry index
+  unsigned lt, eq;
+  warp_count_masked(table + first, q[j], lane, first, lo_b[j], hi_b[j], &lt, &eq);
+  if (lane == 0) {
+    lt_out[j] = (int32_t)lt;
+    eq_out[j] = (int32_t)eq;
+  }
+}
+
 __global__ void __launch_bounds__(WARPS_PER_CTA * 32)
 block_count_emit_kernel(const uint32_t* __restrict__ inter,
                         const int32_t* __restrict__ blk,
@@ -129,6 +180,20 @@ int aitpu_block_count(const void* table, const void* blk, const void* q,
                          (cudaStream_t)stream>>>(
         (const uint32_t*)table, (const int32_t*)blk, (const uint32_t*)q,
         (int32_t*)lt, (int32_t*)eq, (int64_t)L, (int64_t)nblk, stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+int aitpu_block_count_masked(const void* table, const void* blk, const void* q,
+                             const void* lo_b, const void* hi_b, void* lt,
+                             void* eq, long long L, long long nblk,
+                             void* stream) {
+  if (L > 0) {
+    block_count_masked_kernel<<<grid_for(L), WARPS_PER_CTA * 32, 0,
+                                (cudaStream_t)stream>>>(
+        (const uint32_t*)table, (const int32_t*)blk, (const uint32_t*)q,
+        (const int32_t*)lo_b, (const int32_t*)hi_b, (int32_t*)lt,
+        (int32_t*)eq, (int64_t)L, (int64_t)nblk);
   }
   return (int)cudaGetLastError();
 }

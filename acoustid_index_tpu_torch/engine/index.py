@@ -24,9 +24,9 @@ Device views: the packed file-tier buffers are shared by reference across
 snapshots and rebuilt only when the file set changes; the memory tier
 repacks per write (bounded by the checkpoint threshold).
 
-The port's copy of acoustid_index_tpu/engine/index.py; it differs only in
-its imports (the port's searcher and segments) and the merge call sites, which run the
-host merge (memseg.merge_segments) because the device merge is not ported yet.
+The port's copy of acoustid_index_tpu/engine/index.py: its relative imports
+resolve to the port's own modules, and the merge call sites run the host
+merge (memseg.merge_segments) because the device merge is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,14 +38,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from acoustid_index_tpu.engine import filefmt, manifest
-from acoustid_index_tpu.engine.errors import SearchTimeout, VersionRequired
-from acoustid_index_tpu.engine.memseg import Segment, build_segment, merge_segments
-from acoustid_index_tpu.engine.merge_policy import TieredMergePolicy
-from acoustid_index_tpu.engine.model import Change, SearchOptions, SearchResult, SegmentInfo, Transaction
-from acoustid_index_tpu.engine.oplog import Oplog
-from acoustid_index_tpu.server import metrics
-
+from . import filefmt, manifest
+from ..server import metrics
+from .errors import SearchTimeout, VersionRequired
+from .memseg import Segment, build_segment, merge_segments
+from .merge_policy import TieredMergePolicy
+from .model import Change, SearchOptions, SearchResult, SegmentInfo, Transaction
+from .oplog import Oplog
 from .searcher import Searcher, SearchStats, default_searcher
 from .segments import FILE_SLOTS, MEMORY_SLOTS, PENDING_VIEW, Snapshot, pack_tier
 
@@ -369,7 +368,7 @@ class Index:
             # pure ingest stream repacking per batch is the dominant bulk
             # cost.  Small interactive writes keep the eager pack so a
             # write-then-search flow never pays it on the read path.
-            from acoustid_index_tpu.engine.model import BulkInsert
+            from .model import BulkInsert
 
             # Defer also when the tier outgrew the slot cap under a bulk
             # stream: a non-bulk write landing mid-stream must not try to
@@ -411,7 +410,7 @@ class Index:
         None) or a flat array with u32 offsets[n+1] spans."""
         import numpy as np
 
-        from acoustid_index_tpu.engine.model import BulkInsert
+        from .model import BulkInsert
 
         ids = np.ascontiguousarray(ids, dtype=np.uint32)
         hashes = np.ascontiguousarray(hashes, dtype=np.uint32)
@@ -583,7 +582,7 @@ class Index:
             # of the tier holds the biggest segments, and rewriting them on
             # every slot-pressure event is the O(N^2) cascade the tiered
             # policy exists to avoid.
-            from acoustid_index_tpu.engine.merge_policy import MergeCandidate
+            from .merge_policy import MergeCandidate
 
             w = min(len(cur.file), 10)
             best = min(range(len(cur.file) - w + 1), key=lambda i: sum(sizes[i : i + w]))

@@ -28,14 +28,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from acoustid_index_tpu.engine.errors import SearchTimeout
-from acoustid_index_tpu.engine.model import SearchOptions, SearchResult
-from acoustid_index_tpu.engine.segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot
-from acoustid_index_tpu.server import metrics
-
 from ..ops.layout import postings_cap
 from ..ops.search_kernel import SearchParams, search_segments_batch_packed_io
-from .segments import pack_tier, tier_view_for_search
+from ..server import metrics
+from .errors import SearchTimeout
+from .model import SearchOptions, SearchResult
+from .segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot, pack_tier, tier_view_for_search
 
 QUERY_BUCKETS = (64, 128, 256, 1024, 4096)  # 128: real fingerprint queries run ~120 hashes
 MAX_QUERY_HASHES = QUERY_BUCKETS[-1]
@@ -86,13 +84,20 @@ def _materialize_row(row, out_len: int):
 
 
 def _pack_rows(params: SearchParams, rows, b: int) -> np.ndarray:
-    """Pre-built (Q+4) u32 request rows -> ONE (b, Q+4) u32 input array."""
+    """Pre-built (Q+4) u32 request rows (a list of rows, or an (n, Q+4)
+    array as the native front hands them over) -> ONE (b, Q+4) u32 input
+    array."""
     Q = params.query_len
     packed = np.zeros((b, Q + 4), np.uint32)
     packed[:, Q + 1] = 1  # limit >= 1 for padding rows
-    if rows:
+    if len(rows):
         packed[: len(rows)] = rows
     return packed
+
+
+def _batch_size(n: int) -> int:
+    """The smallest BATCH_SIZES entry that holds n requests (n <= MAX_BATCH)."""
+    return next(b for b in BATCH_SIZES if b >= n)
 
 
 class Searcher:
@@ -185,6 +190,15 @@ class Searcher:
     def submit(self, snapshot, query, options, deadline=None):
         """Future-returning form; the plain searcher resolves synchronously."""
         return _ImmediateResult(self.search(snapshot, query, options, deadline))
+
+    _pack_rows = staticmethod(_pack_rows)
+
+    @staticmethod
+    def _pick_batch_size(n: int) -> int:
+        """Launch size for a chunk of n claimed rows (the native front's
+        chunking hook): every shape is as good as any other here, so the
+        smallest BATCH_SIZES entry that holds them, capped at MAX_BATCH."""
+        return _batch_size(min(n, MAX_BATCH))
 
     def warm_async(self, snapshot) -> None:
         """No-op: nothing compiles per shape (see the module docstring)."""
@@ -477,7 +491,7 @@ class BatchingSearcher(Searcher):
                     pass
                 continue
             params = _params_for(key[2], key[3])
-            b = next(x for x in BATCH_SIZES if x >= len(batch))
+            b = _batch_size(len(batch))
             try:
                 handle = self._launch(batch[0].snapshot, params, _pack_rows(params, [r.padded for r in batch], b))
             except Exception as exc:  # noqa: BLE001 -- propagated per-request

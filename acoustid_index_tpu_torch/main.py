@@ -3,12 +3,12 @@
 CLI flags mirror the reference's table (upstream fpindex's src/main.zig:40-65,
 README "Configuration"); unknown flags warn and continue.
 
-The port's copy of acoustid_index_tpu/main.py; it differs in its imports
-(the port's MultiIndex and App), in the flags whose subsystems are not
-ported yet (--legacy-port, --search-port, --profile-port, --mesh-shards),
-which exit with an error instead of starting them, and in build_server()/
-stop_server(), split out of run_server() so that an in-process driver
-(chip_smoke.py) serves through the same entry as the CLI.
+The port's copy of acoustid_index_tpu/main.py; its imports are the port's
+own modules.  It differs in the flags whose subsystems are not ported yet
+(--legacy-port, --profile-port, --mesh-shards), which exit with an error
+instead of starting them, and in build_server()/stop_server(), split out of
+run_server() so that an in-process caller (chip_smoke.py) serves through the
+same entry as the CLI.
 """
 
 from __future__ import annotations
@@ -56,18 +56,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # Flags whose subsystems import jax in the reference and are not ported yet.
-NOT_PORTED = ("legacy_port", "search_port", "profile_port", "mesh_shards")
+NOT_PORTED = ("legacy_port", "profile_port", "mesh_shards")
 
 
 def build_server(args):
     """Open the indexes under args.dir and bind the HTTP front to them,
-    not serving yet.  Returns (server, mi, replicator); serve with
+    not serving yet.  With args.search_port, the native search plane
+    (server/native_front.py) starts serving search on that port at once
+    (-1 binds port 0; its port is then front.port).  Returns (server, mi,
+    replicator, front), front None without a search port; serve HTTP with
     server.serve_background() and end with stop_server().  run_server()
-    is the CLI's loop around it; in-process drivers call it directly."""
-    from acoustid_index_tpu.server.http import HttpServer
-
+    is the CLI's loop around it; in-process callers call it directly."""
     from .multi.multi_index import MultiIndex
     from .server.app import App
+    from .server.http import HttpServer
 
     mi = MultiIndex.open(
         args.dir,
@@ -79,8 +81,8 @@ def build_server(args):
 
     replicator = None
     if args.coordinator_url:
-        from acoustid_index_tpu.cluster.remote_coordinator import RemoteCoordinator
-        from acoustid_index_tpu.cluster.replicator import Replicator
+        from .cluster.remote_coordinator import RemoteCoordinator
+        from .cluster.replicator import Replicator
 
         peers = [u.strip() for u in (args.peers or "").split(",") if u.strip()]
         coordinator = RemoteCoordinator(args.coordinator_url)
@@ -95,13 +97,23 @@ def build_server(args):
 
     app = App(mi)
     server = HttpServer(args.host, args.port, app.router, app.error_response, app.not_found)
-    return server, mi, replicator
+
+    front = None
+    if args.search_port:
+        from .server.native_front import NativeFront
+
+        front = NativeFront(mi, max(args.search_port, 0))  # -1 = bind port 0
+        front.start()
+        logging.info("native search plane on 127.0.0.1:%d", front.port)
+    return server, mi, replicator, front
 
 
-def stop_server(server, mi, replicator) -> None:
+def stop_server(server, mi, replicator, front=None) -> None:
     """Stop a server that build_server() made and serve_background() ran."""
     server.shutdown()
     server.server_close()
+    if front is not None:
+        front.stop()
     if replicator is not None:
         replicator.stop()
     mi.close()
@@ -110,9 +122,11 @@ def stop_server(server, mi, replicator) -> None:
 
 
 def run_server(args) -> None:
-    server, mi, replicator = build_server(args)
+    server, mi, replicator, front = build_server(args)
     logging.info("serving on %s:%d (dir=%s)", args.host, server.port, args.dir)
     print(f"LISTENING {server.port}", flush=True)
+    if front is not None:
+        print(f"SEARCHPLANE {front.port}", flush=True)  # port-0 binds resolve here
 
     # One search per open index in the background, so the first real query
     # doesn't pay the kernels' one-time build.
@@ -139,7 +153,7 @@ def run_server(args) -> None:
     server.serve_background()
     stop.wait()
     logging.info("shutting down")
-    stop_server(server, mi, replicator)
+    stop_server(server, mi, replicator, front)
     # All durability work is behind us (WAL synced, manifests written).
     # Skip interpreter finalization, which could tear the interpreter down
     # under a daemon thread still inside native code.
@@ -148,12 +162,12 @@ def run_server(args) -> None:
 
 
 def run_coordinator(args) -> None:
-    from acoustid_index_tpu.cluster.coordinator import MemoryCoordinator
-    from acoustid_index_tpu.cluster.coordinator_server import CoordinatorApp
-    from acoustid_index_tpu.server.http import HttpServer
+    from .cluster.coordinator import MemoryCoordinator
+    from .cluster.coordinator_server import CoordinatorApp
+    from .server.http import HttpServer
 
     if args.coordinator_dir:
-        from acoustid_index_tpu.cluster.file_coordinator import FileCoordinator
+        from .cluster.file_coordinator import FileCoordinator
 
         coordinator = FileCoordinator(args.coordinator_dir)
         logging.info("durable changelog in %s", args.coordinator_dir)

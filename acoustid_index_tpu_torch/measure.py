@@ -9,8 +9,9 @@ memory tier, then reports:
   * at batch sizes 1, 16, 64 and 256 of ~120-hash queries (20 target hashes
     + 100 noise, limit 10, min_score 6, pct 10): ms per batch by host clock
     over 20 batches, each launched and fetched as the searcher serves one
-    (Searcher._launch on its stream, pinned copy-back, event wait); and the
-    range phase alone (_batch_ranges) by CUDA events over the same 20;
+    (Searcher._launch on its stream, pinned copy-back, event wait), with
+    each kernel's launches per batch; and the range phase alone
+    (_batch_ranges) by CUDA events over the same 20;
   * a torch.profiler trace of 5 batches at B=256: summed device time over
     wall time (the card's busy share) and the largest device entries;
   * K1 (stride 2) and K2 alone on the packed table at the B=256 batch's
@@ -88,12 +89,10 @@ def main(argv=None) -> int:
 
     import torch
 
-    from acoustid_index_tpu.engine.memseg import Segment
-    from acoustid_index_tpu.engine.model import SearchOptions, SegmentInfo
-    from acoustid_index_tpu.engine.segments import FILE_SLOTS, MEMORY_SLOTS
-
+    from .engine.memseg import Segment
+    from .engine.model import SearchOptions, SegmentInfo
     from .engine.searcher import Searcher, _pack_rows, _params_for
-    from .engine.segments import pack_tier, tier_view_for_search
+    from .engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier, tier_view_for_search
     from .ops import block_lookup as bl
     from .ops import search_kernel as sk
     from .ops.layout import BLOCK
@@ -136,11 +135,12 @@ def main(argv=None) -> int:
     for b in BATCHES:
         packs = [packed_batch(b) for _ in range(21)]
         run(packs[0])  # first use of this shape
-        stats0 = dict(sk.STATS)
+        stats0, launches0 = dict(sk.STATS), dict(bl.LAUNCHES)
         t0 = time.perf_counter()
         for p in packs[1:]:
             run(p)
         wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+        launches = {k: (bl.LAUNCHES[k] - launches0[k]) / 20 for k in bl.LAUNCHES}
         # The range phase alone, on the same batches.
         ins = [torch.from_numpy(p.view(np.int32)).to(dev) for p in packs[1:]]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -155,6 +155,7 @@ def main(argv=None) -> int:
             "queries_per_s": b * 1e3 / wall_ms,
             "range_phase_ms_events": start.elapsed_time(end) / 20,
             "branches": {k: sk.STATS[k] - stats0[k] for k in sk.STATS},
+            "launches_per_batch": launches,
         }
 
     # Busy share of the card over 5 batches at B=256.

@@ -7,8 +7,9 @@ redirect; delete + recreate always bumps the generation so lineages never
 mix.  In replicated mode creates/deletes/updates route through the
 Replicator and the meta consumer is the only mutator of the index map.
 
-The port's copy of acoustid_index_tpu/multi/multi_index.py; it differs only in
-its imports (the port's Index and searcher).
+The port's copy of acoustid_index_tpu/multi/multi_index.py: the same code,
+its relative imports resolving to the port's own modules (its Index and
+searcher among them).
 """
 
 from __future__ import annotations
@@ -24,13 +25,12 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from acoustid_index_tpu.engine import errors
-from acoustid_index_tpu.engine.model import Change, Delete, Insert, SearchOptions, SearchResult, fold_metadata
-from acoustid_index_tpu.multi import redirect as index_redirect
-from acoustid_index_tpu.server import metrics
-
+from ..engine import errors
 from ..engine.index import Index
+from ..engine.model import Change, Delete, Insert, SearchOptions, SearchResult, fold_metadata
 from ..engine.searcher import Searcher, default_searcher
+from . import redirect as index_redirect
+from ..server import metrics
 
 log = logging.getLogger("acoustid_index_tpu_torch.multi")
 
@@ -200,7 +200,7 @@ class MultiIndex:
         expected_version: Optional[int] = None,
     ) -> int:
         # Fingerprint id 0 is reserved (the "unset" sentinel in segments).
-        from acoustid_index_tpu.engine.model import BulkInsert
+        from ..engine.model import BulkInsert
 
         for change in changes:
             if isinstance(change, (Insert, Delete)) and change.id == 0:
@@ -369,7 +369,7 @@ class MultiIndex:
         returns the new version (the snapshot watermark).  The IndexRef —
         and thus the data consumer — survives; only the underlying Index is
         swapped (MultiIndex.zig bootstrapLineage)."""
-        from acoustid_index_tpu.multi import snapshot as snapshot_wire
+        from . import snapshot as snapshot_wire
 
         vdir = self._lineage_dir(name, generation)
         restore = os.path.join(vdir, "data.restore")

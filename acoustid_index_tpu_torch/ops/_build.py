@@ -76,6 +76,10 @@ def library() -> ctypes.CDLL:
         lib.aitpu_block_count.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P,
         ]
+        lib.aitpu_block_count_masked.restype = ctypes.c_int
+        lib.aitpu_block_count_masked.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
+        ]
         lib.aitpu_block_count_emit.restype = ctypes.c_int
         lib.aitpu_block_count_emit.argtypes = [
             _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,

@@ -7,11 +7,13 @@ it.  Runs that straddle a block boundary get one extra single-block count
 of the previous block, appended to the same lookup stream as a compacted
 tail (see tier_ranges_blocked).
 
-Two CUDA kernels (csrc/block_lookup.cu) serve the contracts of all five of
-the reference's Pallas kernels:
+Three CUDA kernels (csrc/block_lookup.cu) serve the contracts of all five
+of the reference's Pallas kernels:
 
-    K1 block_count       <- block_lookup, block_lookup_wave, block_lookup_resident
-    K2 block_count_emit  <- block_lookup_emit, block_lookup_emit_wave
+    K1  block_count         <- block_lookup, block_lookup_wave,
+                               block_lookup_resident (unmasked)
+    K1m block_count_masked  <- block_lookup_resident (masked: lo_b, hi_b)
+    K2  block_count_emit    <- block_lookup_emit, block_lookup_emit_wave
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for tensors on a card; there is no other fallback.
@@ -22,6 +24,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
 
@@ -29,7 +32,8 @@ from .binsearch import upper_bound
 from .layout import BLOCK, resident_max_bytes, to_storage, u32
 
 ROWS = BLOCK // 128
-LAUNCHES = {"block_count": 0, "block_count_emit": 0}
+LAUNCHES = {"block_count": 0, "block_count_masked": 0, "block_count_emit": 0}
+_launches_lock = threading.Lock()  # several native-front pumps launch at once
 
 # Lookups per chunk of the plain versions: (chunk, 1024) widened to int64
 # is 64 MB, small enough for the card at serving sizes.
@@ -56,7 +60,10 @@ def _cuda_args(table, blk, q):
     return blk, q
 
 
-def _launch_check(rc: int, name: str) -> None:
+def _launched(rc: int, name: str) -> None:
+    """Count one launch of kernel `name`, then raise if it was refused."""
+    with _launches_lock:
+        LAUNCHES[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
@@ -97,8 +104,58 @@ def block_count(table, blk, q, stride: int = 1):
         table.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
         L, table.shape[0] // (stride * BLOCK), stride, stream,
     )
-    LAUNCHES["block_count"] += 1
-    _launch_check(rc, "block_count")
+    _launched(rc, "block_count")
+    return lt, eq
+
+
+def block_count_masked_plain(table, blk, q, lo_b, hi_b):
+    """Plain PyTorch version of K1m: K1 at stride 1 counting only entries
+    whose absolute index blk*BLOCK + i lies in [lo_b[j], hi_b[j])."""
+    nblk = table.shape[0] // BLOCK
+    t2 = table.view(nblk, BLOCK)
+    q = u32(q)
+    blk = blk.to(torch.int64).clamp(0, nblk - 1)
+    lo_b, hi_b = lo_b.to(torch.int64), hi_b.to(torch.int64)
+    ar = torch.arange(BLOCK, device=table.device)
+    lts, eqs = [], []
+    for s in range(0, blk.shape[0], _PLAIN_CHUNK):
+        b = blk[s : s + _PLAIN_CHUNK]
+        e = b[:, None] * BLOCK + ar
+        m = (e >= lo_b[s : s + _PLAIN_CHUNK, None]) & (e < hi_b[s : s + _PLAIN_CHUNK, None])
+        h = u32(t2[b])
+        qq = q[s : s + _PLAIN_CHUNK, None]
+        lts.append(((h < qq) & m).sum(1, dtype=torch.int32))
+        eqs.append(((h == qq) & m).sum(1, dtype=torch.int32))
+    if not lts:
+        e = torch.zeros(0, dtype=torch.int32, device=table.device)
+        return e, e.clone()
+    return torch.cat(lts), torch.cat(eqs)
+
+
+def block_count_masked(table, blk, q, lo_b, hi_b):
+    """K1m: (lt, eq) int32 of q[j] in block blk[j] of `table` (stride 1),
+    counting only absolute entries in [lo_b[j], hi_b[j]) (int32 bounds)."""
+    _check(table, blk, q, 1)
+    if lo_b.shape != blk.shape or hi_b.shape != blk.shape:
+        raise ValueError("lo_b and hi_b must match blk's shape")
+    if lo_b.device != table.device or hi_b.device != table.device:
+        raise ValueError("table, lo_b and hi_b must be on one device")
+    if table.device.type == "cpu":
+        return block_count_masked_plain(table, blk, q, lo_b, hi_b)
+    from . import _build
+
+    blk, q = _cuda_args(table, blk, q)
+    lo_b = lo_b.to(torch.int32).contiguous()
+    hi_b = hi_b.to(torch.int32).contiguous()
+    L = blk.shape[0]
+    lt = torch.empty(L, dtype=torch.int32, device=table.device)
+    eq = torch.empty(L, dtype=torch.int32, device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = _build.library().aitpu_block_count_masked(
+        table.data_ptr(), blk.data_ptr(), q.data_ptr(), lo_b.data_ptr(), hi_b.data_ptr(),
+        lt.data_ptr(), eq.data_ptr(), L, table.shape[0] // BLOCK, stream,
+    )
+    _launched(rc, "block_count_masked")
     return lt, eq
 
 
@@ -146,8 +203,7 @@ def block_count_emit(inter, blk, q):
         inter.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
         rows.data_ptr(), L, inter.shape[0] // (2 * BLOCK), stream,
     )
-    LAUNCHES["block_count_emit"] += 1
-    _launch_check(rc, "block_count_emit")
+    _launched(rc, "block_count_emit")
     return lt, eq, rows
 
 
@@ -172,10 +228,14 @@ def block_lookup_emit(inter, blk, queries):
 block_lookup_emit_wave = block_lookup_emit
 
 
-def block_lookup_resident(hashes, blk, queries):
+def block_lookup_resident(hashes, blk, queries, lo_b=None, hi_b=None):
     """(lt, eq) of each query in 1024-entry chunk blk of a small table (the
-    reference's unmasked VMEM-resident mode; on the card the same K1)."""
-    return block_count(hashes, blk, queries, stride=1)
+    reference's VMEM-resident kernel; on the card K1).  With `lo_b`/`hi_b`
+    (per-lookup absolute entry bounds) only entries in [lo_b, hi_b) count:
+    the reference's masked mode, K1m on the card."""
+    if lo_b is None:
+        return block_count(hashes, blk, queries, stride=1)
+    return block_count_masked(hashes, blk, queries, lo_b, hi_b)
 
 
 # ---- range phase ----

@@ -24,6 +24,7 @@ What changed in the port, and why:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,6 +51,12 @@ P_MEM_DIRECT = 64  # memory-tier gather slots per query on the direct path
 # Per-process counts: which branch each batch took, and host syncs spent
 # on branch predicates.  Tests and chip_smoke.py read deltas.
 STATS = {"direct": 0, "matrix": 0, "sort": 0, "host_syncs": 0}
+_stats_lock = threading.Lock()  # the native front's pumps launch concurrently
+
+
+def _count(key: str) -> None:
+    with _stats_lock:
+        STATS[key] += 1
 
 
 @dataclass(frozen=True)
@@ -65,7 +72,7 @@ class SearchParams:
 
 def _host(*preds):
     """Fetch device predicates in one transfer (one host sync)."""
-    STATS["host_syncs"] += 1
+    _count("host_syncs")
     return [bool(v) for v in torch.stack([torch.as_tensor(p) for p in preds]).tolist()]
 
 
@@ -379,7 +386,7 @@ def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, li
         return res
 
     if direct_ok:
-        STATS["direct"] += 1
+        _count("direct")
         d_f, inv_f, totals_f = _direct_candidates(p, file_tier, rows, covered, f_lo, f_cnt, E_direct)
         if has_mem:
             # Mem-live batch: append the memory-tier postings (<= P_MEM_DIRECT).
@@ -400,7 +407,7 @@ def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, li
         return finish(res, totals, trunc.expand(B))
 
     if small_ok and small:
-        STATS["matrix"] += 1
+        _count("matrix")
         d, o, inv, totals, overs = _plan_and_gather(
             p_small, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem
         )
@@ -409,7 +416,7 @@ def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, li
         res = _final_select_matrix(p, d, score, win, cand, newest, limits, min_scores, pcts)
         return finish(res, totals, trunc | overs)
 
-    STATS["sort"] += 1
+    _count("sort")
     d, o, inv, totals, overs = _plan_and_gather(p, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem)
     cd, co, csc, c_valid, c_over = _score_rank(p, d, o, inv, min_scores)
     newest = _batch_newest(mem_tier, cd.reshape(-1), c_valid.reshape(-1)).reshape(cd.shape)

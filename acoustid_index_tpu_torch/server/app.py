@@ -6,8 +6,9 @@ fingerprint sugar, index management, snapshot export, peer status.
 Content negotiation: an explicit Content-Type wins; with no header, msgpack
 when there is a body, JSON otherwise; Accept mirrors the request type.
 
-The port's copy of acoustid_index_tpu/server/app.py; it differs only in
-its imports (the port's MultiIndex).
+The port's copy of acoustid_index_tpu/server/app.py: the same code, its
+relative imports resolving to the port's own modules (its MultiIndex among
+them).
 """
 
 from __future__ import annotations
@@ -16,13 +17,12 @@ import os
 import logging
 from typing import Optional
 
-from acoustid_index_tpu.engine import errors
-from acoustid_index_tpu.engine.model import Delete, Insert
-from acoustid_index_tpu.multi import snapshot as snapshot_wire
-from acoustid_index_tpu.server import api
-from acoustid_index_tpu.server.http import Request, Response, Router
-
+from ..engine import errors
+from ..engine.model import Delete, Insert
+from ..multi import snapshot as snapshot_wire
 from ..multi.multi_index import MultiIndex, SearchRequestParams
+from . import api
+from .http import Request, Response, Router
 
 log = logging.getLogger("acoustid_index_tpu_torch.server")
 

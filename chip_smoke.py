@@ -4,12 +4,16 @@
     python3 chip_smoke.py    # one card, ~5 minutes; exits 2 without CUDA
 
 Phases, each fatal on failure:
-  0. device: the card's name and power limit (nvidia-smi), CUDA present.
-  1. kernels: build K1 block_count and K2 block_count_emit from
-     acoustid_index_tpu_torch/csrc, run them on a 64K-block table at the
-     serving path's lookup count (256 queries x 128 hashes + the straddle
-     tail) and hold them bit for bit against their plain PyTorch versions;
-     time both with CUDA events.
+  0. device: the card's name and power limit (nvidia-smi), CUDA present;
+     the host libraries (csrc/*.cc: codecs, the native search front, the
+     load generator) start building with g++ in the background.
+  1. kernels: build K1 block_count, K1m block_count_masked and K2
+     block_count_emit from acoustid_index_tpu_torch/csrc, run them on a
+     64K-block table at the serving path's lookup count (256 queries x 128
+     hashes + the straddle tail; K1m with random [lo_b, hi_b) spans, some
+     across block edges, some empty) and hold them bit for bit against their
+     plain PyTorch versions; time both with CUDA events and work out each
+     kernel's bound from this run's inputs.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
      to disk, then reopen and serve through the CLI's own entry
@@ -21,10 +25,19 @@ Phases, each fatal on failure:
      deleted docs must vanish.  Then docs that share one hot hash, and
      queries for them that must take the search program's matrix branch and
      its sort branch.  K1's and K2's launch counters must grow during this
-     phase.
-  3. the CLI entry: `python -m acoustid_index_tpu_torch.main --port 0`
-     serves a PUT and a search, and stops on SIGTERM.
+     phase.  Then the same 512 searches through the native search front
+     (csrc/aitpu_front.cc + server/native_front.py, started by build_server
+     with a search port) on the same index: every answer equal to the
+     oracle and every body byte-equal to the Python server's; then ~10 s of
+     load from the native load generator (csrc/aitpu_loadgen.cc) in a
+     separate process, every response holding its expected first result;
+     K1's and K2's launch counters must grow during this path too.  Last, the
+     same load against fronts of 1, 2, 4 and 8 pumps.
+  3. the CLI entry: `python -m acoustid_index_tpu_torch.main --port 0
+     --search-port -1` serves a PUT and a search on each of its two ports,
+     and stops on SIGTERM.
 
+The run fails if jax or any module of acoustid_index_tpu was imported.
 The last three lines of stdout are the card's nvidia-smi line, a JSON
 object of per-kernel results, and {"ok": true, "device": {...}}.
 """
@@ -33,7 +46,7 @@ from __future__ import annotations
 
 import json
 import os
-import select
+import queue
 import shutil
 import signal
 import subprocess
@@ -46,6 +59,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_REQUESTS = 512  # phase-2 searches of the read phase (>= 256)
 THREADS = 32
 QUERY_OPTS = {"limit": 10, "min_score": 6, "score_pct": 10, "timeout": 10_000}
+LOADGEN_S, LOADGEN_SWEEP_S = 10, 5  # seconds of load on the native front
+LOADGEN_CONNS = 256  # the load generator's keep-alive connections
+PUMPS_SWEEP = (1, 2, 4, 8)  # fronts of these pump counts (the default is 1), outside the counted window
 
 
 def log(msg: str) -> None:
@@ -123,9 +139,21 @@ def phase1_kernels(dev):
     q[2::13] = 0xFFFFFFFF  # sentinel queries count the padding
     blk[3::29] = 0  # dead lanes point at block 0
 
+    # K1m's spans: around each lookup's own position, so most cut its block
+    # and many cross into a neighbouring one; every 8th is empty (hi <= lo),
+    # every 8th covers the whole block.
+    lo = pos - torch.randint(0, 1536, (L,), generator=g, device=dev)
+    hi = pos + torch.randint(0, 1536, (L,), generator=g, device=dev)
+    hi[::8] = lo[::8] - torch.randint(0, 2, lo[::8].shape, generator=g, device=dev)
+    whole = blk[4::8].to(torch.int64) * BLOCK
+    lo[4::8], hi[4::8] = whole - 7, whole + BLOCK + 7
+    lo_b, hi_b = lo.clamp(0, n).to(torch.int32), hi.clamp(0, n).to(torch.int32)
+
     cases = [
         ("block_count", "stride1", lambda: bl.block_count(hashes, blk, q, 1), lambda: bl.block_count_plain(hashes, blk, q, 1)),
         ("block_count", "stride2", lambda: bl.block_count(inter, blk, q, 2), lambda: bl.block_count_plain(inter, blk, q, 2)),
+        ("block_count_masked", "masked", lambda: bl.block_count_masked(hashes, blk, q, lo_b, hi_b),
+         lambda: bl.block_count_masked_plain(hashes, blk, q, lo_b, hi_b)),
         ("block_count_emit", "emit", lambda: bl.block_count_emit(inter, blk, q), lambda: bl.block_count_emit_plain(inter, blk, q)),
     ]
     results = {}
@@ -135,12 +163,54 @@ def phase1_kernels(dev):
         err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
         check(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}/{label} differs from its plain version (max abs err {err})")
         ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
+        bound_ms, bound_by, moved, ops = kernel_bound(label, blk, lo_b, hi_b, got, nblk)
         log(f"phase1: {name}/{label} L={L} bit-equal to plain; kernel {ms:.4f} ms ({ms * 1e3 / L:.4f} us/lookup), "
-            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / L:.4f} us/lookup)")
-        results[(name, label)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "L": L}
+            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / L:.4f} us/lookup); bound {bound_ms:.4f} ms by {bound_by} "
+            f"({moved} bytes, {ops} compares) = {100 * bound_ms / ms:.1f} % of the kernel's time")
+        results[(name, label)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "L": L,
+                                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "compares": ops}
+        if label == "masked":
+            cut = ((lo_b // BLOCK != blk) | ((hi_b - 1) // BLOCK != blk)) & (hi_b > lo_b)
+            results[(name, label)]["spans"] = {"empty": int((hi_b <= lo_b).sum()), "cut_by_a_block_edge": int(cut.sum())}
     del h, d, hashes, inter
     torch.cuda.empty_cache()
     return results
+
+
+# The card's peaks (H100 SXM data sheet): HBM
+# bytes per second, and the float32 rate outside the tensor cores, taken as
+# the rate of the kernels' 32-bit integer compares.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+
+def kernel_bound(label, blk, lo_b, hi_b, got, nblk):
+    """(bound ms, "bytes" or "operations", bytes, compares) of one kernel
+    call on this run's inputs: each input byte the call needs read once,
+    each output written once.  A lookup needs its block's 1024 hashes (K1m:
+    only the entries in its span), so a block that several lookups share
+    counts once; K2 also needs the two 128-docid rows it copies out."""
+    import torch
+
+    from acoustid_index_tpu_torch.ops.layout import BLOCK
+
+    L = blk.shape[0]
+    b = blk.to(torch.int64).clamp(0, nblk - 1)
+    if label == "masked":
+        e = b[:, None] * BLOCK + torch.arange(BLOCK, device=blk.device)
+        need = torch.zeros(nblk * BLOCK, dtype=torch.bool, device=blk.device)
+        need[e[(e >= lo_b[:, None]) & (e < hi_b[:, None])]] = True
+        moved = int(need.sum()) * 4 + L * (4 + 4 + 4 + 4) + L * 8  # entries; blk, q, lo_b, hi_b; lt, eq
+        ops = L * BLOCK * 4  # two bound compares and two value compares per entry
+    else:
+        moved = int(torch.unique(b).numel()) * BLOCK * 4 + L * (4 + 4) + L * 8
+        ops = L * BLOCK * 2
+        if label == "emit":
+            r = torch.clamp(got[0].to(torch.int64) >> 7, max=7)
+            rows = torch.cat([b * 8 + r, b * 8 + torch.clamp(r + 1, max=7)])
+            moved += int(torch.unique(rows).numel()) * 128 * 4 + L * 256 * 4
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes", moved, ops) if t_bytes >= t_ops else (t_ops, "operations", moved, ops)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -167,7 +237,8 @@ class BaseSegment:
 
 def run_searches(base: str, queries):
     """POST every query from THREADS client threads; returns (responses in
-    query order, wall seconds, per-request seconds)."""
+    query order as (status, parsed body, raw body), wall seconds,
+    per-request seconds)."""
     import requests
 
     out = [None] * len(queries)
@@ -188,7 +259,7 @@ def run_searches(base: str, queries):
                 t0 = time.perf_counter()
                 r = s.post(f"{base}/main/_search", json={"query": queries[i], **QUERY_OPTS}, timeout=60)
                 lat[i] = time.perf_counter() - t0
-                out[i] = (r.status_code, r.json())
+                out[i] = (r.status_code, r.json(), r.content)
             except Exception as exc:  # noqa: BLE001 -- reported below
                 errors.append(repr(exc))
                 return
@@ -207,7 +278,7 @@ def run_searches(base: str, queries):
 def check_answers(queries, answers, segments, label):
     from oracle import oracle_search
 
-    for q, (status, body) in zip(queries, answers):
+    for q, (status, body, _) in zip(queries, answers):
         check(status == 200, f"{label}: HTTP {status}: {body}")
         got = [(r["id"], r["score"]) for r in body["results"]]
         want = oracle_search(segments, q, limit=QUERY_OPTS["limit"], min_score=QUERY_OPTS["min_score"], pct=QUERY_OPTS["score_pct"])
@@ -222,7 +293,7 @@ def post_updates(base: str, changes) -> None:
         check(r.status_code == 200, f"_update failed: {r.status_code} {r.text}")
 
 
-def phase2_serving(n_docs: int, n_requests: int):
+def phase2_serving(n_docs: int, n_requests: int, native_built):
     import numpy as np
     import requests
 
@@ -270,9 +341,12 @@ def phase2_serving(n_docs: int, n_requests: int):
 
         # Reopen and serve as the CLI does, with a fresh process-wide searcher.
         t1 = time.perf_counter()
-        args = cli.build_parser().parse_args(["--dir", tmp, "--host", "127.0.0.1", "--port", "0", "--checkpoint-age-ms", "0"])
+        native_built()  # the front's library, before build_server starts it
+        args = cli.build_parser().parse_args(["--dir", tmp, "--host", "127.0.0.1", "--port", "0", "--checkpoint-age-ms", "0",
+                                              "--search-port", "-1"])
         served = cli.build_server(args)
-        server, mi, _ = served
+        server, mi, _, front = served
+        server.serve_background()  # at once: stop_server's shutdown() waits for a serving loop
         stats["reopen_s"] = time.perf_counter() - t1
         ref = mi._get_ref("main")
         index = ref.index
@@ -290,7 +364,6 @@ def phase2_serving(n_docs: int, n_requests: int):
         base_seg = BaseSegment(*sorted_corpus(n_docs, dev), n_docs)
         stats["oracle_sort_s"] = time.perf_counter() - t1
 
-        server.serve_background()
         base = f"http://127.0.0.1:{server.port}"
 
         rng = np.random.default_rng(7)
@@ -304,7 +377,7 @@ def phase2_serving(n_docs: int, n_requests: int):
         stats0 = dict(sk.STATS)
         answers, wall, lat = run_searches(base, queries)
         check_answers(queries, answers, [base_seg], "read phase")
-        hits = sum(1 for (_, body), t in zip(answers, targets) if body["results"] and body["results"][0]["id"] == int(t))
+        hits = sum(1 for (_, body, _), t in zip(answers, targets) if body["results"] and body["results"][0]["id"] == int(t))
         p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
         stats.update(search_requests=n_requests, search_wall_s=wall, search_qps=n_requests / wall, target_top1=hits,
                      latency_p50_ms=p50, latency_p99_ms=p99, read_branches={k: sk.STATS[k] - stats0[k] for k in sk.STATS})
@@ -345,7 +418,7 @@ def phase2_serving(n_docs: int, n_requests: int):
         for k, i in enumerate(new_ids):
             top = answers_new[k][1]["results"]
             check(top and top[0]["id"] == int(i), f"new doc {i} does not read back first: {top[:2]}")
-        for (_, body) in answers_new[n_new : n_new + 10]:
+        for (_, body, _) in answers_new[n_new : n_new + 10]:
             check(not any(r["id"] in dels for r in body["results"]), "a deleted doc was returned")
         for i in dels:
             check(requests.get(f"{base}/main/{i}", timeout=60).status_code == 404, f"deleted doc {i} still found")
@@ -375,7 +448,7 @@ def phase2_serving(n_docs: int, n_requests: int):
             answers_hot, _, _ = run_searches(base, q_hot)
             ran = {k: sk.STATS[k] - before[k] for k in ("direct", "matrix", "sort")}
             check_answers(q_hot, answers_hot, segments, f"hot hash, {branch} branch")
-            for k, (_, body) in enumerate(answers_hot):
+            for k, (_, body, _) in enumerate(answers_hot):
                 check(body["results"] and body["results"][0]["id"] == int(hot_ids[k]), f"hot doc {hot_ids[k]} not first: {body['results'][:2]}")
             check(ran[branch] > 0 and sum(ran.values()) == ran[branch], f"{branch} queries ran the batches {ran}")
             stats[f"hot_{branch}"] = {"docs": n_hot, "searches": len(q_hot), "batches": ran}
@@ -385,11 +458,96 @@ def phase2_serving(n_docs: int, n_requests: int):
         stats["launches"] = dict(bl.LAUNCHES)
         stats["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
         log(f"phase2: launches during serving {stats['launches']}; batches/branches/host syncs {stats['branches']}")
+
+        stats["native"] = native_path(mi, front, base, queries, segments)
         return stats
     finally:
         if served is not None:
             cli.stop_server(*served)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def loadgen(port: int, blobs_path: str, seconds: float, conns: int) -> dict:
+    """One run of the native load generator in its own process; its
+    one-line JSON {count, miss, window_s, p50_ms, p99_ms}."""
+    from acoustid_index_tpu_torch.utils.native import loadgen_path
+
+    cmd = [loadgen_path(), "--port", str(port), "--seconds", str(seconds), "--conns", str(conns),
+           "--blobs", blobs_path, "--seed", "1"]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=seconds + 120)
+    check(r.returncode == 0, f"aitpu_loadgen exited {r.returncode}: {r.stderr.strip()[-500:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    out["qps"] = out["count"] / out["window_s"] if out["window_s"] else 0.0
+    out["conns"] = conns
+    return out
+
+
+def native_path(mi, front, py_base, queries, segments):
+    """The native search front on the index the Python server serves: the
+    main path read with the launch counters from zero (512 searches from
+    THREADS client threads, then LOADGEN_S of load from a separate
+    process), then the byte comparison with the Python server and the pumps
+    sweep outside that window."""
+    import msgpack
+    import numpy as np
+
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.ops import search_kernel as sk
+    from acoustid_index_tpu_torch.server.native_front import NativeFront
+
+    base = f"http://127.0.0.1:{front.port}"
+    out = {"pumps": front.pumps}
+    for k in bl.LAUNCHES:
+        bl.LAUNCHES[k] = 0
+    stats0 = dict(sk.STATS)
+    answers, wall, lat = run_searches(base, queries)
+    check_answers(queries, answers, segments, "native front")
+    p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
+    out.update(searches=len(queries), wall_s=wall, qps=len(queries) / wall, latency_p50_ms=p50, latency_p99_ms=p99)
+    log(f"phase2: native front on port {front.port}: {len(queries)} searches from {THREADS} threads in {wall:.3f} s "
+        f"= {len(queries) / wall:.1f} qps (wall clock), latency p50 {p50:.2f} ms p99 {p99:.2f} ms; all equal the oracle")
+
+    # The load generator's blobs: each request with the first result the
+    # oracle-checked answer above holds, which every response must contain.
+    blobs = []
+    for q, (_, body, _) in zip(queries, answers):
+        req = json.dumps({"query": q, **QUERY_OPTS}).encode()
+        top = body["results"]
+        expect = b'"results": [{"id": %d,' % top[0]["id"] if top else b'"results": []'
+        blobs.append((expect, b"POST /main/_search HTTP/1.1\r\nHost: smoke\r\nContent-Type: application/json\r\n"
+                              b"Content-Length: %d\r\n\r\n%s" % (len(req), req)))
+    fd, blobs_path = tempfile.mkstemp(suffix=".blobs")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(msgpack.packb(blobs))
+        load = loadgen(front.port, blobs_path, LOADGEN_S, LOADGEN_CONNS)
+        check(load["count"] > 0 and load["miss"] == 0, f"native front under load: {load}")
+        out["load"] = load
+        out["launches"] = dict(bl.LAUNCHES)
+        out["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
+        log(f"phase2: aitpu_loadgen, {LOADGEN_CONNS} connections, {LOADGEN_S} s: {json.dumps(load)}")
+        log(f"phase2: launches during the native path {out['launches']}; batches/branches/host syncs {out['branches']}")
+
+        # Outside the counted window: the Python server's bytes for the same
+        # queries, and the same load against fronts of other pump counts.
+        py_answers, _, _ = run_searches(py_base, queries)
+        same = sum(a[2] == b[2] for a, b in zip(answers, py_answers))
+        check(same == len(queries), f"native bodies byte-equal to the Python server's for {same}/{len(queries)} queries")
+        log(f"phase2: all {len(queries)} native response bodies byte-equal to the Python server's")
+        out["pumps_sweep"] = {}
+        for pumps in PUMPS_SWEEP:
+            other = NativeFront(mi, 0, pumps=pumps)
+            other.start()
+            try:
+                load = loadgen(other.port, blobs_path, LOADGEN_SWEEP_S, LOADGEN_CONNS)
+            finally:
+                other.stop()
+            check(load["count"] > 0 and load["miss"] == 0, f"native front of {pumps} pumps under load: {load}")
+            out["pumps_sweep"][pumps] = load
+            log(f"phase2: {pumps} pumps: {json.dumps(load)}")
+    finally:
+        os.unlink(blobs_path)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -401,25 +559,37 @@ def phase3_cli():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
-        [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--dir", tmp, "--port", "0"],
+        [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--dir", tmp, "--port", "0", "--search-port", "-1"],
         cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
     )
+    # A thread reads the announcements: both lines can arrive in one read,
+    # and the second then waits in the pipe's buffer, where select() never
+    # sees it.
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
-        line, deadline = "", time.time() + 180
-        while not line.startswith("LISTENING"):
+        ports, deadline = {}, time.time() + 180
+        while len(ports) < 2:  # LISTENING <http port>, then SEARCHPLANE <native port>
             left = deadline - time.time()
-            check(left > 0 and proc.poll() is None, "CLI server did not print LISTENING")
-            if select.select([proc.stdout], [], [], left)[0]:
-                line = proc.stdout.readline()
-        base = f"http://127.0.0.1:{int(line.split()[1])}"
+            check(left > 0 and proc.poll() is None, f"CLI server announced only {ports}")
+            try:
+                word, _, port = lines.get(timeout=min(left, 1.0)).partition(" ")
+            except queue.Empty:
+                continue
+            if word in ("LISTENING", "SEARCHPLANE"):
+                ports[word] = int(port)
+        base = f"http://127.0.0.1:{ports['LISTENING']}"
         check(requests.put(f"{base}/cli", timeout=60).status_code == 200, "CLI: PUT index failed")
         check(requests.put(f"{base}/cli/9", json={"hashes": [11, 22, 33, 44]}, timeout=60).status_code == 200, "CLI: PUT doc failed")
-        r = requests.post(f"{base}/cli/_search", json={"query": [22, 33, 44, 55], "timeout": 10_000}, timeout=60)
-        check(r.status_code == 200 and r.json()["results"] == [{"id": 9, "score": 3}], f"CLI search: {r.status_code} {r.text}")
+        for label, url in (("HTTP", base), ("native", f"http://127.0.0.1:{ports['SEARCHPLANE']}")):
+            r = requests.post(f"{url}/cli/_search", json={"query": [22, 33, 44, 55], "timeout": 10_000}, timeout=60)
+            check(r.status_code == 200 and r.json()["results"] == [{"id": 9, "score": 3}],
+                  f"CLI search on its {label} port: {r.status_code} {r.text}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"CLI server exited {rc} on SIGTERM")
-        log("phase3: CLI entry served PUT + search and stopped on SIGTERM")
+        log("phase3: CLI entry served PUT + a search on its HTTP port and on its native search port, "
+            "and stopped on SIGTERM")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -430,8 +600,44 @@ def phase3_cli():
 # ---------------------------------------------------------------- main
 
 
+def start_native_builds():
+    """Start g++ on every host source (codecs, native front, load
+    generator) at once, in the background; returns a function that waits
+    for them and fails the run if one did not build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from acoustid_index_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(3)
+    jobs = {src: pool.submit(native.build, src, kind)
+            for src, kind in (("aitpu_front.cc", "so"), ("aitpu_loadgen.cc", "exe"), ("aitpu_native.cc", "so"))}
+    pool.shutdown(wait=False)
+
+    def wait():
+        for src, job in jobs.items():
+            try:
+                job.result()
+            except Exception as exc:  # noqa: BLE001 -- fatal, reported
+                fail(f"{src} did not build: {exc}")
+        log(f"phase2: host libraries built (g++ started {time.perf_counter() - t0:.1f} s ago)")
+
+    return wait
+
+
+def kernel_entry(name, replaces, also, k, launches):
+    """One kernel's entry of the final `kernels` line."""
+    return {
+        "name": name, "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
+        "replaces": replaces, "also_replaces": also,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None, "lookups": k["L"],
+    }
+
+
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "acoustid_index_tpu_torch")) or not os.path.isdir(os.path.join(HERE, "acoustid_index_tpu")):
+    if not os.path.isdir(os.path.join(HERE, "acoustid_index_tpu_torch")):
         print("FAIL: run chip_smoke.py from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
@@ -450,37 +656,40 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"phase0: nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    native_built = start_native_builds()
 
     kern = phase1_kernels(dev)
     log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
-    serving = phase2_serving(N_DOCS, N_REQUESTS)
-    check(serving["launches"]["block_count"] > 0, "K1 block_count never launched on the serving path")
-    check(serving["launches"]["block_count_emit"] > 0, "K2 block_count_emit never launched on the serving path")
+    serving = phase2_serving(N_DOCS, N_REQUESTS, native_built)
+    for path, launches in (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"])):
+        check(launches["block_count"] > 0, f"K1 block_count never launched on the {path} path")
+        check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
     phase3_cli()
     check("jax" not in sys.modules, "jax was imported")
+    ref_mods = sorted(m for m in sys.modules if m == "acoustid_index_tpu" or m.startswith("acoustid_index_tpu."))
+    check(not ref_mods, f"modules of the JAX package were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
     detail = {"phase1": {f"{a}/{b}": v for (a, b), v in kern.items()}, "phase2": serving, "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     log(f"total {total:.1f} s")
 
-    k2 = kern[("block_count_emit", "emit")]
-    k1 = kern[("block_count", "stride2")]
+    def launches(name):
+        return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name]}
+
+    k1 = dict(kern[("block_count", "stride2")])  # the file tier's layout; stride 1 checked bit-equal too
+    k1["max_abs_err"] = max(k1["max_abs_err"], kern[("block_count", "stride1")]["max_abs_err"])
     kernels = [
-        {
-            "name": "block_count", "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
-            "replaces": "acoustid_index_tpu/ops/pallas_lookup.py:256",
-            "also_replaces": ["acoustid_index_tpu/ops/pallas_lookup.py:172", "acoustid_index_tpu/ops/pallas_lookup.py:484"],
-            "launches": serving["launches"]["block_count"], "max_abs_err": max(k1["max_abs_err"], kern[("block_count", "stride1")]["max_abs_err"]),
-            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "lookups": k1["L"],
-        },
-        {
-            "name": "block_count_emit", "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
-            "replaces": "acoustid_index_tpu/ops/pallas_lookup.py:347",
-            "also_replaces": ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
-            "launches": serving["launches"]["block_count_emit"], "max_abs_err": k2["max_abs_err"],
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "lookups": k2["L"],
-        },
+        kernel_entry("block_count", "acoustid_index_tpu/ops/pallas_lookup.py:256",
+                     ["acoustid_index_tpu/ops/pallas_lookup.py:172", "acoustid_index_tpu/ops/pallas_lookup.py:484"],
+                     k1, launches("block_count")),
+        # Masked mode has no caller on either path (nor in the JAX package):
+        # its launches there are 0 by design; phase 1 checks it.
+        kernel_entry("block_count_masked", "acoustid_index_tpu/ops/pallas_lookup.py:496", [],
+                     kern[("block_count_masked", "masked")], launches("block_count_masked")),
+        kernel_entry("block_count_emit", "acoustid_index_tpu/ops/pallas_lookup.py:347",
+                     ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
+                     kern[("block_count_emit", "emit")], launches("block_count_emit")),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

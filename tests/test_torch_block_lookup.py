@@ -2,7 +2,7 @@
 
 Same numpy inputs (fixed seeds) go through the reference's Pallas kernels
 (interpret mode on the CPU, called directly as tests/test_wave_lookup.py
-does) and through the port's kernel wrappers, which on CPU tensors run
+does; block_lookup_resident in both its unmasked and its masked mode) and through the port's kernel wrappers, which on CPU tensors run
 their plain PyTorch versions; then through both packages' range phases
 (tier_ranges_blocked with emit on and off, tier_ranges_resident,
 mention_lookup_blocked) on the cases of tests/test_blocked_lookup.py.
@@ -149,6 +149,53 @@ def test_block_count_matches_resident(L):
     lt_p, eq_p = port.block_lookup_resident(_t(hashes), _t(blk), _t(q))
     np.testing.assert_array_equal(_np(lt_p), np.asarray(lt_r))
     np.testing.assert_array_equal(_np(eq_p), np.asarray(eq_r))
+
+
+def _masked_case(L, seed):
+    """A top index that concatenates three sorted runs (a multi-segment
+    tier's) plus sentinel padding, and per-lookup [lo_b, hi_b) spans: one
+    run, several runs across their bounds, empty (lo == hi and lo > hi), and
+    spans over the padding; sentinel queries among them."""
+    rng = np.random.default_rng(seed)
+    lens = (1500, 2100, 500)
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    runs = [np.sort(rng.integers(0, 1 << 16, n, dtype=np.uint32)) for n in lens]
+    runs[1][:40] = runs[0][-1]  # equal hashes on both sides of a run bound
+    nblk = -(-int(bounds[-1]) // BLOCK) + 1
+    table = np.full(nblk * BLOCK, 0xFFFFFFFF, np.uint32)
+    table[: bounds[-1]] = np.concatenate(runs)
+    kind = rng.integers(0, 4, L)
+    seg = rng.integers(0, 3, L)
+    lo = bounds[seg].copy()
+    hi = bounds[seg + 1].copy()
+    cross = kind == 1  # from inside one run to inside a later one
+    lo[cross] = rng.integers(0, bounds[1], cross.sum())
+    hi[cross] = rng.integers(bounds[2], bounds[3] + 1, cross.sum())
+    empty = kind == 2
+    lo[empty] = rng.integers(0, table.shape[0], empty.sum())
+    hi[empty] = lo[empty] - rng.integers(0, 2, empty.sum())
+    pad = kind == 3  # over the sentinel padding
+    lo[pad] = rng.integers(bounds[2], bounds[3], pad.sum())
+    hi[pad] = table.shape[0]
+    blk = np.clip(lo // BLOCK + rng.integers(-1, 2, L), 0, nblk - 1).astype(np.int32)
+    q = table[np.clip(lo + rng.integers(0, 64, L), 0, table.shape[0] - 1)].copy()
+    q[1::5] = rng.integers(0, 1 << 16, len(q[1::5]), dtype=np.uint32)
+    q[3::7] = 0xFFFFFFFF
+    return table, blk, q, lo.astype(np.int32), hi.astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [128, 700])
+def test_block_count_masked_matches_resident(L):
+    table, blk, q, lo, hi = _masked_case(L, seed=L)
+    args = [jnp.asarray(a) for a in (table, blk, q, lo, hi)]
+    lt_r, eq_r = jax.jit(ref.block_lookup_resident)(*args)
+    lt_p, eq_p = port.block_lookup_resident(_t(table), _t(blk), _t(q), _t(lo), _t(hi))
+    np.testing.assert_array_equal(_np(lt_p), np.asarray(lt_r))
+    np.testing.assert_array_equal(_np(eq_p), np.asarray(eq_r))
+    # The mask matters: unmasked counts differ wherever a span cuts a block.
+    lt_u, _ = port.block_lookup_resident(_t(table), _t(blk), _t(q))
+    assert (lt_u.numpy() != lt_p.numpy()).any()
+    assert (eq_p.numpy()[hi <= lo] == 0).all() and (lt_p.numpy()[hi <= lo] == 0).all()
 
 
 # ---- range phase: tier_ranges_blocked on the cases of test_blocked_lookup ----
@@ -358,6 +405,16 @@ def test_cuda_block_count_emit_matches_plain(cuda):
     args = (_t(ref_layout.interleave_np(hashes, docids)), _t(blk), _t(q))
     want = port.block_count_emit_plain(*args)
     got = port.block_count_emit(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cuda_block_count_masked_matches_plain(cuda):
+    table, blk, q, lo, hi = _masked_case(5000, seed=6)
+    args = (_t(table), _t(blk), _t(q), _t(lo), _t(hi))
+    want = port.block_count_masked_plain(*args)
+    got = port.block_count_masked(*(a.to(cuda) for a in args))
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)

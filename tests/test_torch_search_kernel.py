@@ -1,9 +1,10 @@
 """The port's batched search program against the JAX package, exactly.
 
-Each case packs its tiers ONCE with the reference's pack_tier, carries
-them across with the port's tier_from_numpy, and feeds the same packed
-query batch (pack_inputs_np) to both packages'
-search_segments_batch_packed_io.  All seven output fields must be equal
+Each case builds its segments in both packages from the same changes (each
+package with its own model and memseg), packs them with each package's
+pack_tier, and feeds the same packed query batch (pack_inputs_np) to both
+packages' search_segments_batch_packed_io; the two packed tiers must be
+equal field for field.  All seven output fields must be equal
 (tolerance 0: they are integers and flags), and each query's results must
 equal tests/oracle.py.  Every case also asserts which branch the batch
 took (direct / matrix / sort), so all three stay covered.
@@ -18,10 +19,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from acoustid_index_tpu.engine.memseg import build_segment
-from acoustid_index_tpu.engine.model import Delete, Insert, SegmentInfo
+from acoustid_index_tpu.engine import memseg as ref_memseg
+from acoustid_index_tpu.engine import model as ref_model
 from acoustid_index_tpu.engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier, tier_view_for_search
 from acoustid_index_tpu.ops import search_kernel as ref_sk
+from acoustid_index_tpu_torch.engine import memseg as port_memseg
+from acoustid_index_tpu_torch.engine import model as port_model
+from acoustid_index_tpu_torch.engine import segments as port_segments
 from acoustid_index_tpu_torch.engine.searcher import Searcher, _params_for
 from acoustid_index_tpu_torch.engine.segments import tier_from_numpy
 from acoustid_index_tpu_torch.ops import search_kernel as port_sk
@@ -43,9 +47,15 @@ def _small_interpret_steps(monkeypatch):
 
 
 def seg_from_docs(docs, commit_id, deletes=()):
-    changes = [Insert(id=i, hashes=h) for i, h in docs.items()]
-    changes += [Delete(id=i) for i in deletes]
-    return build_segment(changes, SegmentInfo(commit_id=commit_id))
+    """(reference segment, port segment) of the same inserts then deletes,
+    each built by its own package from its own change objects."""
+    out = []
+    for model, memseg in ((ref_model, ref_memseg), (port_model, port_memseg)):
+        changes = [model.Insert(id=i, hashes=h) for i, h in docs.items()]
+        changes += [model.Delete(id=i) for i in deletes]
+        out.append(memseg.build_segment(changes, model.SegmentInfo(commit_id=commit_id)))
+    assert isinstance(out[1], port_memseg.Segment) and not isinstance(out[1], ref_memseg.Segment)
+    return tuple(out)
 
 
 def to_oracle(seg):
@@ -59,11 +69,25 @@ def run_both(file_segs, mem_segs, requests, branch, oracle=True):
     """requests: [(query, limit, min_score, pct)].  Runs both packages on
     one batch, checks all fields equal, that the batch took `branch`, and
     (with `oracle`; a truncated scan differs from it by design) each
-    query against the oracle.  Returns the port's unpacked outputs."""
-    f_np = tier_view_for_search(pack_tier(file_segs, FILE_SLOTS, device_mentions=False), mentions=False)
-    m_np = tier_view_for_search(pack_tier(mem_segs, MEMORY_SLOTS))
+    query against the oracle.  Returns the port's unpacked outputs.
+    Segments are (reference, port) pairs from seg_from_docs."""
+    import torch
+
+    f_np = tier_view_for_search(pack_tier([r for r, _ in file_segs], FILE_SLOTS, device_mentions=False), mentions=False)
+    m_np = tier_view_for_search(pack_tier([r for r, _ in mem_segs], MEMORY_SLOTS))
     f_np = {k: np.asarray(v) for k, v in f_np.items()}
     m_np = {k: np.asarray(v) for k, v in m_np.items()}
+    f_port = port_segments.tier_view_for_search(
+        port_segments.pack_tier([p for _, p in file_segs], FILE_SLOTS, device_mentions=False, device="cpu"),
+        mentions=False,
+    )
+    m_port = port_segments.tier_view_for_search(
+        port_segments.pack_tier([p for _, p in mem_segs], MEMORY_SLOTS, device="cpu")
+    )
+    for want_np, got_t in ((f_np, f_port), (m_np, m_port)):
+        assert set(got_t) == set(want_np)
+        for k, v in got_t.items():
+            np.testing.assert_array_equal(torch.as_tensor(v).numpy().view(want_np[k].dtype), want_np[k], err_msg=k)
 
     searcher = Searcher(device="cpu")
     rows = [searcher.prepare_query(q) for q, *_ in requests]
@@ -85,12 +109,9 @@ def run_both(file_segs, mem_segs, requests, branch, oracle=True):
             jnp.asarray(packed),
         )
     )
-    import torch
-
     before = dict(port_sk.STATS)
     got = port_sk.search_segments_batch_packed_io(
-        params, tier_from_numpy(f_np, "cpu", mentions=False), tier_from_numpy(m_np, "cpu"),
-        torch.from_numpy(packed.view(np.int32)),
+        params, f_port, m_port, torch.from_numpy(packed.view(np.int32)),
     ).numpy().view(np.uint32)
     taken = [k for k in ("direct", "matrix", "sort") if port_sk.STATS[k] != before[k]]
     assert taken == [branch], taken
@@ -100,7 +121,7 @@ def run_both(file_segs, mem_segs, requests, branch, oracle=True):
     for f in FIELDS:
         np.testing.assert_array_equal(out_g[f], out_w[f], err_msg=f)
 
-    oracle_segs = [to_oracle(s) for s in list(file_segs) + list(mem_segs)]
+    oracle_segs = [to_oracle(p) for _, p in list(file_segs) + list(mem_segs)]
     for i, (q, limit, ms, pct) in enumerate(requests if oracle else ()):
         n = int(out_g["count"][i])
         res = list(zip(out_g["ids"][i, :n].tolist(), out_g["scores"][i, :n].tolist()))
@@ -252,9 +273,9 @@ def test_direct_path_with_tombstones(force_interleave, with_hot):
     hot = np.uint32(0x5050_5050)
     for i in range(200, 280):
         doc_hashes[i][3] = int(hot)
-    f1 = build_segment([Insert(id=i, hashes=doc_hashes[i]) for i in range(1, n_docs + 1)], SegmentInfo(commit_id=1))
+    f1 = seg_from_docs({i: doc_hashes[i] for i in range(1, n_docs + 1)}, 1)
     del_ids = [int(i) for i in rng.choice(np.arange(1, n_docs + 1), 40, replace=False)]
-    m1 = build_segment([Delete(id=i) for i in del_ids], SegmentInfo(commit_id=2))
+    m1 = seg_from_docs({}, 2, deletes=del_ids)
     requests = []
     for trial in range(B):
         t = del_ids[trial] if trial % 3 == 0 else int(rng.integers(1, n_docs + 1))
@@ -277,16 +298,13 @@ def test_interleaved_multisegment(force_interleave, with_hot):
     for i in range(100, 180):
         doc_hashes[i][3] = int(hot)
     half = n_docs // 2
-    f1 = build_segment([Insert(id=i, hashes=doc_hashes[i]) for i in range(1, half + 1)], SegmentInfo(commit_id=1))
-    f2 = build_segment([Insert(id=i, hashes=doc_hashes[i]) for i in range(half + 1, n_docs + 1)], SegmentInfo(commit_id=2))
+    f1 = seg_from_docs({i: doc_hashes[i] for i in range(1, half + 1)}, 1)
+    f2 = seg_from_docs({i: doc_hashes[i] for i in range(half + 1, n_docs + 1)}, 2)
     re_ids = [int(i) for i in rng.choice(np.arange(1, n_docs + 1), 50, replace=False)]
     del_ids = [int(i) for i in rng.choice(np.arange(1, n_docs + 1), 30, replace=False) if int(i) not in re_ids]
-    changes = []
     for i in re_ids:
         doc_hashes[i] = rng.integers(0, 2**32, 24, dtype=np.uint32).tolist()
-        changes.append(Insert(id=i, hashes=doc_hashes[i]))
-    changes += [Delete(id=i) for i in del_ids]
-    m1 = build_segment(changes, SegmentInfo(commit_id=3))
+    m1 = seg_from_docs({i: doc_hashes[i] for i in re_ids}, 3, deletes=del_ids)
     requests = []
     for trial in range(B):
         t = re_ids[trial] if trial % 2 == 0 else int(rng.integers(1, n_docs + 1))
@@ -319,8 +337,8 @@ def test_pack_tier_np_matches_reference(case, monkeypatch):
         rng = np.random.default_rng(5)
         segs = [seg_from_docs(_random_docs(rng, 3000), 1)]
     for slots, mentions in ((FILE_SLOTS, False), (MEMORY_SLOTS, True)):
-        want = pack_tier(segs, slots, device_mentions=mentions)
-        got = pack_tier_np(segs, slots)
+        want = pack_tier([r for r, _ in segs], slots, device_mentions=mentions)
+        got = pack_tier_np([p for _, p in segs], slots)
         assert set(got) == set(want) - {"view_token"}
         for k, v in got.items():
             w = np.asarray(want[k])
@@ -330,6 +348,7 @@ def test_pack_tier_np_matches_reference(case, monkeypatch):
             # The carried-across tier reads back through the layout helpers.
             tier = tier_from_numpy(got, "cpu", mentions=mentions)
             assert "inter" in tier and "hashes" not in tier
-            idx = torch.arange(segs[0].num_items)
-            np.testing.assert_array_equal(hash_gather(tier, idx).numpy(), segs[0].hashes)
-            np.testing.assert_array_equal(docid_gather(tier, idx).numpy(), segs[0].docids)
+            seg = segs[0][1]
+            idx = torch.arange(seg.num_items)
+            np.testing.assert_array_equal(hash_gather(tier, idx).numpy(), seg.hashes)
+            np.testing.assert_array_equal(docid_gather(tier, idx).numpy(), seg.docids)

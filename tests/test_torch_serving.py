@@ -3,7 +3,7 @@ acknowledged writes survive a close and reopen; the package never imports
 jax; the CLI entry serves and refuses the flags it has not ported.
 
 Both servers run in this process on the CPU (AITPU_TORCH_DEVICE=cpu for the
-port), behind the reference's HttpServer on port 0.
+port), each behind its own package's HttpServer on port 0.
 """
 
 import os
@@ -18,8 +18,9 @@ import pytest
 import requests
 import torch
 
-from acoustid_index_tpu.server.http import HttpServer
+from acoustid_index_tpu.server import http as ref_http
 from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
+from acoustid_index_tpu_torch.server import http as port_http
 
 from server_fixture import post_search
 
@@ -36,12 +37,12 @@ def _cpu(monkeypatch):
 
 
 class _Node:
-    """One MultiIndex + App behind an HttpServer on port 0."""
+    """One MultiIndex + App behind its package's HttpServer on port 0."""
 
-    def __init__(self, mi_cls, app_cls, path, **kw):
+    def __init__(self, mi_cls, app_cls, path, http=port_http, **kw):
         self.mi = mi_cls.open(path, checkpoint_age=None, sync=False, **kw)
         app = app_cls(self.mi)
-        self.server = HttpServer("127.0.0.1", 0, app.router, app.error_response, app.not_found)
+        self.server = http.HttpServer("127.0.0.1", 0, app.router, app.error_response, app.not_found)
         self.server.serve_background()
         self.base = f"http://127.0.0.1:{self.server.port}"
 
@@ -102,7 +103,7 @@ def test_http_answers_match_reference_and_survive_reopen(tmp_path):
     docs = _docs()
     queries = _searches(docs)
     searcher = BatchingSearcher(device="cpu")
-    ref_node = _Node(RefMultiIndex, RefApp, str(tmp_path / "ref"))
+    ref_node = _Node(RefMultiIndex, RefApp, str(tmp_path / "ref"), http=ref_http)
     node = _Node(MultiIndex, App, str(tmp_path / "port"), searcher=searcher)
     try:
         assert _write(node.base, docs) == _write(ref_node.base, docs)
@@ -155,7 +156,7 @@ def test_port_never_imports_jax():
     assert r.returncode == 0 and r.stdout.strip() == "OK", r.stderr
 
 
-@pytest.mark.parametrize("flag", ["--mesh-shards=2", "--search-port=-1", "--profile-port=9999", "--legacy-port=6080"])
+@pytest.mark.parametrize("flag", ["--mesh-shards=2", "--profile-port=9999", "--legacy-port=6080"])
 def test_main_refuses_unported_flags(flag, capsys):
     from acoustid_index_tpu_torch.main import main
 
