@@ -14,9 +14,19 @@ memory tier, then reports:
     (_batch_ranges) by CUDA events over the same 20;
   * a torch.profiler trace of 5 batches at B=256: summed device time over
     wall time (the card's busy share) and the largest device entries;
-  * K1 (stride 2) and K2 alone on the packed table at the B=256 batch's
-    landing-lookup count, in 5 rounds of 50 launches each (CUDA events), with
-    nvidia-smi's SM clock and power draw read around each round.
+  * K1 and K2 alone at the shapes the main path gives them
+    (main_path_cases, phase1_cases): (a) K1 over the packed tier's 1 MiB
+    top index with a B=256 batch's 32,768 landing lookups; (b) K1 as
+    tier_ranges_resident calls it, two lookups per query, over a sorted
+    table of the smoke's live memory-tier size; (c) K1 stride 2 and K2 over
+    the packed 2 GiB interleaved tier with 32,768 + 2,048 lookups; (d)
+    chip_smoke.py's 64K-block table (all four kernels).  At each shape the
+    kernel, its first (scanning) design, the search designs it did not take
+    (csrc/block_lookup_designs.cu) and, for K1, the torch.searchsorted
+    yardstick run in turns, 5 rounds of 50 launches each, cold (cycling
+    through input sets that together exceed the L2 four times) and warm
+    (one set), with nvidia-smi's SM clock and power draw read around each
+    round; each must equal the plain version bit for bit on every set first.
 
 Prints one JSON object as its last line and writes it to --out.  Needs a
 card; builds the kernels at first use like any other caller.
@@ -82,6 +92,414 @@ def smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else f"nvidia-smi rc {out.returncode}"
 
 
+# ---------------------------------------------------------------- kernels
+#
+# The kernels alone at the shapes the main path gives them.  chip_smoke.py
+# phase 1 runs the same cases on synthetic tables; main() below on the
+# packed tier, with the search designs K1 and K2 did not take
+# (csrc/block_lookup_designs.cu) beside them.
+
+LOOKUPS = 256 * 128  # a B=256 batch's landing lookups (Q = 128)
+TAIL = 2048  # tier_ranges_blocked's straddle tail (AITPU_WINDOW_CAP's default)
+# chip_smoke.py's live memory tier while it serves the native front: 33,720
+# postings (1,000 new docs, 5 re-inserts and 400 hot-hash docs of 24 hashes)
+# in a tier of 49,152 (phase 2 checks the capacity).
+MEM_TIER_LIVE, MEM_TIER_CAP = 33_720, 49_152
+ROUNDS, TURN_LAUNCHES = 5, 50
+# The card's peaks (H100 SXM data sheet): HBM bytes per second, and the
+# float32 rate outside the tensor cores, taken as the rate of the kernels'
+# 32-bit integer compares.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+_SLEEP_CYCLES = 20_000_000  # ~10 ms: the card waits while the host queues a turn
+# Cold and warm.  On the main path every batch brings new lookups, and
+# between two calls of one kernel the rest of a batch (K2's tens of MB over
+# the file tier, the candidate gathers) passes through the H100's 50 MB L2,
+# so a call finds its inputs cold there.  A case's cold turns cycle through
+# independent input sets that together hold at least COLD_BYTES: fresh
+# lookups over one large table ((c), (d): QUERY_SETS batches, each call
+# touching >= 12 MB), or fresh lookups and a fresh copy of a small table
+# ((a), (b)).  Its warm turns repeat one set, whose table and lookups then
+# stay in L2 from call to call.
+L2_BYTES = 50 * 2**20
+COLD_BYTES = 4 * L2_BYTES
+QUERY_SETS = 16
+
+
+def _n_sets(table_bytes: int, L: int) -> int:
+    """Input sets of a small-table case that hold COLD_BYTES together: each
+    a table copy plus its lookups' blk, q, lt and eq (16 bytes each)."""
+    return -(-COLD_BYTES // (table_bytes + 16 * L))
+
+
+def sorted_table(n: int, live: int, g, dev):
+    """n u32 values (int64) in ascending order: `live` random ones, then
+    0xFFFFFFFF padding, as a packed tier holds them."""
+    import torch
+
+    h = torch.sort(torch.randint(0, 0xFFFFFFFF, (live,), generator=g, device=dev, dtype=torch.int64)).values
+    return torch.cat([h, torch.full((n - live,), 0xFFFFFFFF, dtype=torch.int64, device=dev)])
+
+
+def interleave(hashes, docids):
+    """(n,) + (n,) int64 u32 values -> the interleaved int32 table."""
+    import torch
+
+    from .ops.layout import BLOCK, to_storage
+
+    nblk = hashes.shape[0] // BLOCK
+    return torch.stack([to_storage(hashes).view(nblk, BLOCK), to_storage(docids).view(nblk, BLOCK)], 1).reshape(-1).contiguous()
+
+
+def searchsorted_count(sorted64, blk, q64):
+    """K1's (lt, eq) by torch.searchsorted over a globally sorted table
+    (int64 u32 values), both sides clamped to each lookup's block: the
+    yardstick that chip_smoke.py reports as K1's library time.  The port
+    never calls it."""
+    import torch
+
+    from .ops.layout import BLOCK
+
+    base = blk.to(torch.int64) * BLOCK
+    lo = torch.searchsorted(sorted64, q64, side="left").clamp_(min=base, max=base + BLOCK)
+    hi = torch.searchsorted(sorted64, q64, side="right").clamp_(min=base, max=base + BLOCK)
+    return (lo - base).to(torch.int32), (hi - lo).to(torch.int32)
+
+
+def design_count(name, table, blk, q, stride):
+    """(lt, eq) by aitpu_design_count_<name> (csrc/block_lookup_designs.cu),
+    a K1 design the port does not run; counted in no LAUNCHES."""
+    import torch
+
+    from .ops import _build
+    from .ops import block_lookup as bl
+    from .ops.layout import BLOCK
+
+    blk, q = bl._cuda_args(table, blk, q)
+    L = blk.shape[0]
+    lt = torch.empty(L, dtype=torch.int32, device=table.device)
+    eq = torch.empty(L, dtype=torch.int32, device=table.device)
+    rc = getattr(_build.library("designs"), "aitpu_design_count_" + name)(
+        table.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
+        L, table.shape[0] // (stride * BLOCK), stride, torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"design_count_{name} launch failed: cudaError {rc}")
+    return lt, eq
+
+
+def design_emit(name, inter, blk, q):
+    """(lt, eq, rows) by aitpu_design_emit_<name>, a K2 design the port
+    does not run."""
+    import torch
+
+    from .ops import _build
+    from .ops import block_lookup as bl
+    from .ops.layout import BLOCK
+
+    blk, q = bl._cuda_args(inter, blk, q)
+    L = blk.shape[0]
+    lt = torch.empty(L, dtype=torch.int32, device=inter.device)
+    eq = torch.empty(L, dtype=torch.int32, device=inter.device)
+    rows = torch.empty((L, 2, 128), dtype=torch.int32, device=inter.device)
+    rc = getattr(_build.library("designs"), "aitpu_design_emit_" + name)(
+        inter.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(), rows.data_ptr(),
+        L, inter.shape[0] // (2 * BLOCK), torch.cuda.current_stream(inter.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"design_emit_{name} launch failed: cudaError {rc}")
+    return lt, eq, rows
+
+
+def _set(table, blk, q64, sorted64=None, spans=None):
+    """One input set: the kernels' inputs (int32 blk, int32 bit-pattern q,
+    as the range phase hands them), the int64 query values, the
+    yardstick's table and K1m's spans."""
+    import torch
+
+    from .ops.layout import to_storage
+
+    return {"inputs": (table, blk.to(torch.int32).contiguous(), to_storage(q64).contiguous()),
+            "q64": q64, "sorted64": sorted64, "spans": spans}
+
+
+def _case(kernel, shape, note, stride, sets, variants, plain):
+    table, blk, _ = sets[0]["inputs"]
+    return {"kernel": kernel, "shape": shape, "note": note, "stride": stride, "L": int(blk.shape[0]),
+            "table_entries": int(table.shape[0]), "sets": sets, "variants": variants, "plain": plain}
+
+
+def _k1_case(shape, note, stride, sets, designs=False):
+    """K1 at one shape: the search, the scan, the torch.searchsorted
+    yardstick and, with `designs`, the 8-lane group design."""
+    from .ops import block_lookup as bl
+
+    variants = {
+        "new": lambda s: bl.block_count(*s["inputs"], stride),
+        "scan": lambda s: bl.block_count_scan(*s["inputs"], stride),
+        "searchsorted": lambda s: searchsorted_count(s["sorted64"], s["inputs"][1], s["q64"]),
+    }
+    if designs:
+        variants["group8"] = lambda s: design_count("group8", *s["inputs"], stride)
+    return _case("block_count", shape, note, stride, sets, variants, lambda s: bl.block_count_plain(*s["inputs"], stride))
+
+
+def _k2_case(shape, note, sets, designs=False):
+    from .ops import block_lookup as bl
+
+    variants = {
+        "new": lambda s: bl.block_count_emit(*s["inputs"]),
+        "scan": lambda s: bl.block_count_emit_scan(*s["inputs"]),
+    }
+    if designs:
+        variants["group8"] = lambda s: design_emit("group8", *s["inputs"])
+        variants["warp32"] = lambda s: design_emit("warp32", *s["inputs"])
+    return _case("block_count_emit", shape, note, 2, sets, variants, lambda s: bl.block_count_emit_plain(*s["inputs"]))
+
+
+def main_path_cases(inter, n_live: int, qpool, mem_hashes, g, designs: bool = False):
+    """Shapes (a)-(c) and the L = 1 launch floor.  `inter` is a packed
+    interleaved tier with `n_live` live postings (globally sorted), `qpool`
+    (QUERY_SETS, LOOKUPS) batches of flat query hashes (int64 u32 values),
+    `mem_hashes` a sorted memory-tier table (int32 storage).  Lookups are
+    made as the main path makes them: landing chunks and blocks from each
+    table's own top index."""
+    import torch
+
+    from .ops import block_lookup as bl
+    from .ops.layout import BLOCK, u32
+
+    dev = inter.device
+    nblk = inter.shape[0] // (2 * BLOCK)
+    hh = inter.view(nblk, 2 * BLOCK)[:, :BLOCK]
+    h64 = u32(hh.reshape(-1))  # the hash halves, contiguous: the yardstick's table
+    qs = list(qpool)
+
+    # (a) the file tier's top-index lookup (tier_ranges_blocked, stage 1),
+    # each set over its own copy of the 1 MiB top index.
+    bi = hh[:, 0].contiguous()
+    if bi.shape[0] % BLOCK:
+        bi = torch.cat([bi, torch.full((-bi.shape[0] % BLOCK,), -1, dtype=torch.int32, device=dev)])
+    sets = []
+    for k in range(_n_sets(bi.shape[0] * 4, LOOKUPS)):
+        t, q = bi.clone(), qs[k % len(qs)].clone()
+        sets.append(_set(t, bl._landing_chunk(u32(t[::BLOCK]), q), q, u32(t)))
+    cases = [_k1_case("a", "top index of the file tier", 1, sets, designs)]
+
+    # (b) tier_ranges_resident over the live memory tier: chunks c-1 and c.
+    sets = []
+    for k in range(_n_sets(mem_hashes.shape[0] * 4, 2 * LOOKUPS)):
+        t, qm = mem_hashes.clone(), qs[k % len(qs)].clone()
+        hit = torch.randint(0, MEM_TIER_LIVE, (qm.shape[0] // 6,), generator=g, device=dev)
+        qm[: hit.shape[0]] = u32(t[hit])
+        cm = bl._landing_chunk(u32(t[::BLOCK]), qm)
+        sets.append(_set(t, torch.cat([torch.clamp(cm - 1, min=0), cm]), torch.cat([qm, qm]), u32(t)))
+    cases.append(_k1_case("b", f"memory tier of {mem_hashes.shape[0]} entries, two lookups per query", 1, sets, designs))
+
+    # (c) the landing stream of the file tier plus its straddle tail.
+    blk_last = (n_live - 1) // BLOCK
+    top64 = u32(bi)
+    sets = []
+    for q in qs:
+        blk = torch.clamp(torch.searchsorted(top64, q, right=True) - 1, 0, blk_last)
+        sets.append(_set(inter, torch.cat([blk, torch.clamp(blk[:TAIL] - 1, min=0)]), torch.cat([q, q[:TAIL]]), h64))
+    note = f"{inter.shape[0] * 4 / 2**30:.2f} GiB interleaved tier, landing stream + tail"
+    cases.append(_k1_case("c", note, 2, sets, designs))
+    cases.append(_k2_case("c", note, sets, designs))
+
+    q1 = qs[0][:1].contiguous()
+    floor = _k1_case("floor", "L = 1: the launch floor", 1, [_set(bi, bl._landing_chunk(u32(bi[::BLOCK]), q1), q1, top64)])
+    # As the main path called K1 before the range phase made int32 queries.
+    floor["variants"]["new_int64_queries"] = lambda s: bl.block_count(s["inputs"][0], s["inputs"][1], s["q64"], 1)
+    cases.append(floor)
+    return cases
+
+
+def phase1_cases(dev, g, designs: bool = False):
+    """Shape (d): chip_smoke.py's first 64K-block table, all four
+    kernels at L = 34,816 (a batch's lookups plus the tail), K1m with
+    random [lo_b, hi_b) spans, some across block edges, some empty;
+    QUERY_SETS sets of fresh lookups."""
+    import torch
+
+    from .ops import block_lookup as bl
+    from .ops.layout import BLOCK, to_storage
+
+    nblk = 65536
+    n = nblk * BLOCK
+    h = torch.sort(torch.randint(0, 0xFFFFFFFF, (n,), generator=g, device=dev, dtype=torch.int64)).values
+    # Equal runs across every 97th block boundary, and sentinel padding.
+    for b in range(1, nblk, 97):
+        h[b * BLOCK - 3 : b * BLOCK + 5] = h[b * BLOCK].item()
+    h[-3000:] = 0xFFFFFFFF
+    d = torch.randint(1, 0xFFFFFFFF, (n,), generator=g, device=dev, dtype=torch.int64)
+    hashes = to_storage(h)
+    inter = interleave(h, d)
+
+    L = LOOKUPS + TAIL
+    flat, wide = [], []
+    for _ in range(QUERY_SETS):
+        pos = torch.randint(0, n, (L,), generator=g, device=dev)
+        blk = (pos // BLOCK).to(torch.int32)
+        q = h[pos]
+        q[1::7] = torch.randint(0, 0xFFFFFFFF, q[1::7].shape, generator=g, device=dev)  # misses
+        q[2::13] = 0xFFFFFFFF  # sentinel queries count the padding
+        blk[3::29] = 0  # dead lanes point at block 0
+        lo = pos - torch.randint(0, 1536, (L,), generator=g, device=dev)
+        hi = pos + torch.randint(0, 1536, (L,), generator=g, device=dev)
+        hi[::8] = lo[::8] - torch.randint(0, 2, lo[::8].shape, generator=g, device=dev)
+        whole = blk[4::8].to(torch.int64) * BLOCK
+        lo[4::8], hi[4::8] = whole - 7, whole + BLOCK + 7
+        spans = (lo.clamp(0, n).to(torch.int32), hi.clamp(0, n).to(torch.int32))
+        flat.append(_set(hashes, blk, q, h, spans))
+        wide.append(_set(inter, blk, q, h))
+
+    note = "64K-block table"
+    masked = _case("block_count_masked", "d", note, 1, flat,
+                   {"new": lambda s: bl.block_count_masked(*s["inputs"], *s["spans"])},
+                   lambda s: bl.block_count_masked_plain(*s["inputs"], *s["spans"]))
+    (lo_b, hi_b), b0 = flat[0]["spans"], flat[0]["inputs"][1]
+    cut = ((lo_b // BLOCK != b0) | ((hi_b - 1) // BLOCK != b0)) & (hi_b > lo_b)
+    masked["span_counts"] = {"empty": int((hi_b <= lo_b).sum()), "cut_by_a_block_edge": int(cut.sum())}
+    return [
+        _k1_case("d", note, 1, flat, designs),
+        _k1_case("d", note, 2, wide, designs),
+        masked,
+        _k2_case("d", note, wide, designs),
+    ]
+
+
+def turn_ms(fn, sets, n: int, start: int = 0) -> float:
+    """ms per call of n back-to-back calls fn(sets[(start + i) % len(sets)]),
+    CUDA events.  The card first sleeps while the host queues the n calls,
+    so the time is the card's and not the host's dispatch."""
+    import torch
+
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(_SLEEP_CYCLES)
+    start_ev.record()
+    for i in range(n):
+        fn(sets[(start + i) % len(sets)])
+    end_ev.record()
+    end_ev.synchronize()
+    return start_ev.elapsed_time(end_ev) / n
+
+
+def kernel_bound(case, s, outs):
+    """(bound ms, "bytes" or "operations", needed bytes, scan bytes,
+    compares) of one call on input set `s`: each byte the call needs,
+    read once, each output written once, at the card's peaks.
+
+    K1/K2 over sorted blocks need, per lookup, the 32-byte sectors that
+    hold the entries on each side of its two bounds (lt - 1 and lt, ub - 1
+    and ub, inside the block), each sector counted once per call; K2 also
+    the distinct docid rows it copies and the 1 KB it writes per lookup.
+    K1m needs the entries inside its spans.  "Scan bytes" is what the
+    scanning designs read: every distinct block's 1024 hashes."""
+    import torch
+
+    from .ops.layout import BLOCK
+
+    table, blk, _ = s["inputs"]
+    stride = case["stride"]
+    nblk = table.shape[0] // (stride * BLOCK)
+    L = blk.shape[0]
+    b = blk.to(torch.int64).clamp(0, nblk - 1)
+    lt, eq = outs[0].to(torch.int64), outs[1].to(torch.int64)
+    io = L * (4 + 4) + L * 8  # blk, q; lt, eq
+    scan = int(torch.unique(b).numel()) * BLOCK * 4 + io
+    if case["kernel"] == "block_count_masked":
+        lo_b, hi_b = s["spans"]
+        e = b[:, None] * BLOCK + torch.arange(BLOCK, device=blk.device)
+        need = torch.zeros(nblk * BLOCK, dtype=torch.bool, device=blk.device)
+        need[e[(e >= lo_b[:, None]) & (e < hi_b[:, None])]] = True
+        needed = int(need.sum()) * 4 + io + L * 8  # + lo_b, hi_b
+        ops = L * BLOCK * 4  # two bound compares and two value compares per entry
+    else:
+        at = torch.cat([lt - 1, lt, lt + eq - 1, lt + eq]).clamp(0, BLOCK - 1)
+        sectors = (b.repeat(4) * stride * BLOCK + at) * 4 // 32
+        needed = int(torch.unique(sectors).numel()) * 32 + io
+        ops = L * 2 * 11  # a binary search's compares, both bounds
+        if case["kernel"] == "block_count_emit":
+            r = torch.clamp(lt >> 7, max=7)
+            rows = int(torch.unique(torch.cat([b * 8 + r, b * 8 + torch.clamp(r + 1, max=7)])).numel())
+            needed += rows * 128 * 4 + L * 256 * 4
+            scan += rows * 128 * 4 + L * 256 * 4
+    return {"needed_bytes": needed, "scan_bytes": scan, "compares": ops}
+
+
+def run_case(case, log=print):
+    """Check every variant of `case` bit for bit against the plain version
+    on every input set, then time them in turns (v1, v2, ..., v2, v1) over
+    ROUNDS rounds of TURN_LAUNCHES launches, cold (cycling through the
+    sets) and warm (set 0 again and again), with the SM clock and power
+    draw read around each round.  Returns the case's record; a variant's
+    `median_ms` is its cold time where the case has several sets."""
+    import statistics
+
+    import torch
+
+    sets = case["sets"]
+    err, need = 0, []
+    for s in sets:
+        want = case["plain"](s)
+        for name, fn in case["variants"].items():
+            got = fn(s)
+            torch.cuda.synchronize()
+            e = max(int((a.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0 for a, w in zip(got, want))
+            if e or not all(torch.equal(a, w) for a, w in zip(got, want)):
+                raise AssertionError(f"{case['kernel']}/{case['shape']}/{name} differs from the plain version (max abs err {e})")
+            err = max(err, e)
+        need.append(kernel_bound(case, s, want))
+    names = list(case["variants"])
+    order = names + names[::-1]
+    modes = {"cold": sets, "warm": sets[:1]} if len(sets) > 1 else {"warm": sets}
+    samples = {(k, m): [] for k in names for m in modes}
+    smi_rounds, at = [], 0
+    for _ in range(ROUNDS):
+        before = smi("clocks.sm,power.draw")
+        for m, ss in modes.items():
+            for k in order:
+                samples[(k, m)].append(turn_ms(case["variants"][k], ss, TURN_LAUNCHES, at))
+                at += TURN_LAUNCHES
+        smi_rounds.append([before, smi("clocks.sm,power.draw")])
+
+    def stats(v):
+        return {"median_ms": statistics.median(v), "min_ms": min(v), "max_ms": max(v), "samples_ms": v}
+
+    timed = next(iter(modes))
+    rec = {k: case[k] for k in ("kernel", "shape", "note", "stride", "L", "table_entries", "span_counts") if k in case}
+    rec["sets"], rec["timed"], rec["max_abs_err"] = len(sets), timed, err
+    rec["variants"] = {}
+    for k in names:
+        rec["variants"][k] = stats(samples[(k, timed)])
+        if timed == "cold":
+            rec["variants"][k]["warm"] = stats(samples[(k, "warm")])
+    rec["plain_ms"] = turn_ms(case["plain"], sets[:1], 5)
+    rec["smi_rounds"] = smi_rounds
+    # The bound of one call, averaged over the sets the cold turns cycle through.
+    for key in ("needed_bytes", "scan_bytes", "compares"):
+        rec[key] = sum(n[key] for n in need) / len(need)
+    t_bytes, t_ops = rec["needed_bytes"] / HBM_BYTES_PER_S * 1e3, rec["compares"] / CUDA_CORE_OPS_PER_S * 1e3
+    rec["bound_ms"], rec["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rec["scan_bound_ms"] = rec["scan_bytes"] / HBM_BYTES_PER_S * 1e3
+
+    def show(k):
+        v = rec["variants"][k]
+        warm = f", warm {v['warm']['median_ms']:.4f}" if "warm" in v else ""
+        return f"{k} {v['median_ms']:.4f} ({v['min_ms']:.4f}-{v['max_ms']:.4f}){warm}"
+
+    new = rec["variants"]["new"]["median_ms"]
+    log(f"kernels: {case['kernel']} ({case['shape']}: {case['note']}, stride {case['stride']}) L={case['L']} "
+        f"bit-equal to plain on {len(sets)} sets; median ms over {ROUNDS}x2 turns of {TURN_LAUNCHES}, {timed}: "
+        f"{'; '.join(show(k) for k in names)}; plain {rec['plain_ms']:.4f}; bound {rec['bound_ms']:.5f} ms by "
+        f"{rec['bound_by']} ({rec['needed_bytes']:.0f} needed bytes; scan bytes {rec['scan_bytes']:.0f} = "
+        f"{rec['scan_bound_ms']:.4f} ms) = {100 * rec['bound_ms'] / new:.1f} % of the kernel; "
+        f"clocks/power {smi_rounds[0][0]} .. {smi_rounds[-1][1]}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join("chiprun_out", "measure.json"))
@@ -95,7 +513,7 @@ def main(argv=None) -> int:
     from .engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier, tier_view_for_search
     from .ops import block_lookup as bl
     from .ops import search_kernel as sk
-    from .ops.layout import BLOCK
+    from .ops.layout import to_storage, u32
     from .utils.device import device
 
     dev = device()
@@ -177,29 +595,17 @@ def main(argv=None) -> int:
         "top": [[e.key[:120], e.count, getattr(e, "self_device_time_total", 0) / 1e3] for e in top],
     }
 
-    # K1 (stride 2) and K2 alone on the packed table, 5 rounds.
-    L = 256 * 128
-    nblk = inter.shape[0] // (2 * BLOCK)
+    # The kernels alone at the main path's shapes, on the packed tier, with
+    # the designs K1 and K2 did not take beside them.
+    qpool = torch.stack([u32(torch.from_numpy(packed_batch(256).view(np.int32)).to(dev)[:, :128]).reshape(-1)
+                         for _ in range(QUERY_SETS)])
     g = torch.Generator(device=dev).manual_seed(3)
-    blk = torch.randint(0, nblk, (L,), generator=g, device=dev, dtype=torch.int32)
-    q = inter.view(nblk, 2 * BLOCK)[blk.to(torch.int64), torch.randint(0, BLOCK, (L,), generator=g, device=dev)]
-    kernels = {"block_count_stride2": lambda: bl.block_count(inter, blk, q, 2), "block_count_emit": lambda: bl.block_count_emit(inter, blk, q)}
-    rounds = []
-    for _ in range(5):
-        row = {"smi_before": smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")}
-        for name, fn in kernels.items():
-            fn()
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(50):
-                fn()
-            end.record()
-            end.synchronize()
-            row[name + "_ms"] = start.elapsed_time(end) / 50
-        row["smi_after"] = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
-        rounds.append(row)
-    report["kernel_rounds"] = {"lookups": L, "table_blocks": nblk, "rounds": rounds}
+    mem = to_storage(sorted_table(MEM_TIER_CAP, MEM_TIER_LIVE, g, dev))
+    n_live = int(snap.file_view["seg_len"].sum())
+    report["kernels"] = [run_case(c) for c in main_path_cases(inter, n_live, qpool, mem, g, designs=True)]
+    del mem
+    torch.cuda.empty_cache()
+    report["kernels"] += [run_case(c) for c in phase1_cases(dev, g, designs=True)]
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes.
 
-The sources are compiled on first use into a plain-C shared library under
-`acoustid_index_tpu_torch/_build/` (listed in .gitignore), named by a hash
-of the sources and flags so an edited kernel never loads a stale build.  No
-PyTorch headers are involved, so a build takes seconds.  Nothing here runs
-at import time: the CPU test suite imports every module of the port on a
-machine with no nvcc and no card.
+Each library's sources are compiled on first use into a plain-C shared
+library under `acoustid_index_tpu_torch/_build/` (listed in .gitignore),
+named by a hash of the sources and flags so an edited kernel never loads a
+stale build.  No PyTorch headers are involved, so a build takes seconds.
+Nothing here runs at import time: the CPU test suite imports every module
+of the port on a machine with no nvcc and no card.
+
+Two libraries: "kernels" (csrc/block_lookup.cu), the kernels the port
+runs; "designs" (csrc/block_lookup_designs.cu), the search designs that
+K1 and K2 did not take, which only measure.py loads to time them.
 """
 
 from __future__ import annotations
@@ -20,17 +24,35 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("block_lookup.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
-_lib = None
-build_seconds = None  # wall time of this process's build (None: not built here)
-
 _P = ctypes.c_void_p
+_COUNT = [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]
+_EMIT = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
+_MASKED = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
+
+# library -> (sources, {C entry: ctypes argument types})
+LIBRARIES = {
+    "kernels": (("block_lookup.cu",), {
+        "aitpu_block_count": _COUNT,
+        "aitpu_block_count_scan": _COUNT,
+        "aitpu_block_count_masked": _MASKED,
+        "aitpu_block_count_emit": _EMIT,
+        "aitpu_block_count_emit_scan": _EMIT,
+    }),
+    "designs": (("block_lookup_designs.cu",), {
+        "aitpu_design_count_group8": _COUNT,
+        "aitpu_design_emit_group8": _EMIT,
+        "aitpu_design_emit_warp32": _EMIT,
+    }),
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_seconds: dict = {}  # library -> wall time of this process's nvcc run (absent: not built here)
 
 
 def _nvcc() -> str:
@@ -43,46 +65,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _so_path() -> str:
+def _so_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
+    for src in LIBRARIES[name][0]:
+        with open(os.path.join(_CSRC, src), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libaitpu_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libaitpu_{name}-{h.hexdigest()[:16]}.so")
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed.  Raises on
+def library(name: str = "kernels") -> ctypes.CDLL:
+    """The loaded library `name`, building it first if needed.  Raises on
     any build or load failure -- there is no fallback."""
-    global _lib, build_seconds
     with _lock:
-        if _lib is not None:
-            return _lib
-        so = _so_path()
+        if name in _libs:
+            return _libs[name]
+        sources, entries = LIBRARIES[name]
+        so = _so_path(name)
         if not os.path.exists(so):
             import time
 
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(_CSRC, s) for s in SOURCES]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(_CSRC, s) for s in sources]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-            build_seconds = time.perf_counter() - t0
+            build_seconds[name] = time.perf_counter() - t0
         lib = ctypes.CDLL(so)
-        lib.aitpu_block_count.restype = ctypes.c_int
-        lib.aitpu_block_count.argtypes = [
-            _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P,
-        ]
-        lib.aitpu_block_count_masked.restype = ctypes.c_int
-        lib.aitpu_block_count_masked.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
-        ]
-        lib.aitpu_block_count_emit.restype = ctypes.c_int
-        lib.aitpu_block_count_emit.argtypes = [
-            _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P,
-        ]
-        _lib = lib
+        for fn, argtypes in entries.items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
         return lib

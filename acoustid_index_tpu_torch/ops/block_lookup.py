@@ -15,10 +15,25 @@ of the reference's Pallas kernels:
     K1m block_count_masked  <- block_lookup_resident (masked: lo_b, hi_b)
     K2  block_count_emit    <- block_lookup_emit, block_lookup_emit_wave
 
+K1 and K2 search the block (one thread per lookup, a binary search to
+each bound), so they are exact only on blocks that are non-decreasing as
+u32: every table this module hands them is (merged tier postings with
+their 0xFFFFFFFF padding, top indexes, mention tables).  K1m keeps the
+whole-block scan, as its tables may concatenate sorted runs.
+`block_count_scan` and `block_count_emit_scan` are K1's and K2's first,
+scanning designs, kept so that a run can time both designs on one card;
+nothing here calls them.
+
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for tensors on a card; there is no other fallback.
-`LAUNCHES` counts kernel launches per wrapper, so a run can show that its
-path went through the kernels.
+The plain versions count over the whole block, so they hold for any block;
+with `CHECK_SORTED` set, K1's and K2's wrappers first check the search's
+precondition on the CPU.  `LAUNCHES` counts kernel launches per wrapper, so
+a run can show that its path went through the kernels.
+
+The kernels read queries as int32 bit patterns.  The range phase below
+converts a batch's int64 query values once per call (`to_storage`, one
+cast) and hands every K1/K2 call of that call the int32 copy.
 """
 
 from __future__ import annotations
@@ -32,8 +47,21 @@ from .binsearch import upper_bound
 from .layout import BLOCK, resident_max_bytes, to_storage, u32
 
 ROWS = BLOCK // 128
-LAUNCHES = {"block_count": 0, "block_count_masked": 0, "block_count_emit": 0}
+LAUNCHES = {
+    "block_count": 0,
+    "block_count_masked": 0,
+    "block_count_emit": 0,
+    "block_count_scan": 0,
+    "block_count_emit_scan": 0,
+}
 _launches_lock = threading.Lock()  # several native-front pumps launch at once
+
+# Test hook: when true, K1's and K2's wrappers check on the CPU that every
+# block they look into is non-decreasing as u32 -- the precondition of the
+# kernels' search, which the card does not check and the plain versions do
+# not need -- and raise if one is not.  The tests that drive the serving
+# path set it, so a caller that hands K1/K2 an unsorted table fails there.
+CHECK_SORTED = False
 
 # Lookups per chunk of the plain versions: (chunk, 1024) widened to int64
 # is 64 MB, small enough for the card at serving sizes.
@@ -58,6 +86,19 @@ def _cuda_args(table, blk, q):
     blk = blk.to(torch.int32).contiguous()
     q = (q if q.dtype == torch.int32 else to_storage(q.to(torch.int64))).contiguous()
     return blk, q
+
+
+def _check_sorted(name, table, blk, stride):
+    """Raise unless every block that `blk` names is non-decreasing as u32."""
+    nblk = table.shape[0] // (stride * BLOCK)
+    b = torch.unique(blk.to(torch.int64).clamp(0, nblk - 1))
+    h = u32(table.view(nblk, stride * BLOCK)[b, :BLOCK])
+    bad = (h[:, 1:] < h[:, :-1]).any(1)
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: block {int(b[bad][0])} of a {table.shape[0]}-entry table is not "
+            "non-decreasing as u32; the kernel's search would miscount it"
+        )
 
 
 def _launched(rc: int, name: str) -> None:
@@ -86,13 +127,8 @@ def block_count_plain(table, blk, q, stride: int = 1):
     return torch.cat(lts), torch.cat(eqs)
 
 
-def block_count(table, blk, q, stride: int = 1):
-    """K1: (lt, eq) int32 of q[j] in block blk[j] of `table` (u32 patterns
-    in int32 storage; `stride` 2 reads the hash half of interleaved
-    blocks).  q holds u32 values as int64, or bit patterns as int32."""
-    _check(table, blk, q, stride)
-    if table.device.type == "cpu":
-        return block_count_plain(table, blk, q, stride)
+def _launch_count(name, table, blk, q, stride):
+    """(lt, eq) from the library's K1-shaped kernel aitpu_<name>."""
     from . import _build
 
     blk, q = _cuda_args(table, blk, q)
@@ -100,12 +136,35 @@ def block_count(table, blk, q, stride: int = 1):
     lt = torch.empty(L, dtype=torch.int32, device=table.device)
     eq = torch.empty(L, dtype=torch.int32, device=table.device)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = _build.library().aitpu_block_count(
+    rc = getattr(_build.library(), "aitpu_" + name)(
         table.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
         L, table.shape[0] // (stride * BLOCK), stride, stream,
     )
-    _launched(rc, "block_count")
+    _launched(rc, name)
     return lt, eq
+
+
+def block_count(table, blk, q, stride: int = 1):
+    """K1: (lt, eq) int32 of q[j] in block blk[j] of `table` (u32 patterns
+    in int32 storage; `stride` 2 reads the hash half of interleaved
+    blocks).  q holds u32 values as int64, or bit patterns as int32.  On a
+    card every block must be non-decreasing as u32: the kernel searches it
+    (lt = its lower bound of q, eq = upper bound - lt)."""
+    _check(table, blk, q, stride)
+    if table.device.type == "cpu":
+        if CHECK_SORTED:
+            _check_sorted("block_count", table, blk, stride)
+        return block_count_plain(table, blk, q, stride)
+    return _launch_count("block_count", table, blk, q, stride)
+
+
+def block_count_scan(table, blk, q, stride: int = 1):
+    """K1's first design, kept for comparison on the card: the same
+    (lt, eq), counted over the whole block (any block, sorted or not)."""
+    _check(table, blk, q, stride)
+    if table.device.type == "cpu":
+        return block_count_plain(table, blk, q, stride)
+    return _launch_count("block_count_scan", table, blk, q, stride)
 
 
 def block_count_masked_plain(table, blk, q, lo_b, hi_b):
@@ -134,7 +193,9 @@ def block_count_masked_plain(table, blk, q, lo_b, hi_b):
 
 def block_count_masked(table, blk, q, lo_b, hi_b):
     """K1m: (lt, eq) int32 of q[j] in block blk[j] of `table` (stride 1),
-    counting only absolute entries in [lo_b[j], hi_b[j]) (int32 bounds)."""
+    counting only absolute entries in [lo_b[j], hi_b[j]) (int32 bounds).
+    Its tables may concatenate sorted runs, so a block need not be sorted:
+    the kernel scans the whole block."""
     _check(table, blk, q, 1)
     if lo_b.shape != blk.shape or hi_b.shape != blk.shape:
         raise ValueError("lo_b and hi_b must match blk's shape")
@@ -184,13 +245,8 @@ def block_count_emit_plain(inter, blk, q):
     return torch.cat(lts), torch.cat(eqs), torch.cat(rows)
 
 
-def block_count_emit(inter, blk, q):
-    """K2: K1 at stride 2 over the interleaved layout, plus each lookup's
-    docid rows r = min(lt >> 7, 7) and min(r + 1, 7) of its block as
-    rows[j] (2, 128), u32 patterns in int32 storage."""
-    _check(inter, blk, q, 2)
-    if inter.device.type == "cpu":
-        return block_count_emit_plain(inter, blk, q)
+def _launch_emit(name, inter, blk, q):
+    """(lt, eq, rows) from the library's K2-shaped kernel aitpu_<name>."""
     from . import _build
 
     blk, q = _cuda_args(inter, blk, q)
@@ -199,19 +255,44 @@ def block_count_emit(inter, blk, q):
     eq = torch.empty(L, dtype=torch.int32, device=inter.device)
     rows = torch.empty((L, 2, 128), dtype=torch.int32, device=inter.device)
     stream = torch.cuda.current_stream(inter.device).cuda_stream
-    rc = _build.library().aitpu_block_count_emit(
+    rc = getattr(_build.library(), "aitpu_" + name)(
         inter.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
         rows.data_ptr(), L, inter.shape[0] // (2 * BLOCK), stream,
     )
-    _launched(rc, "block_count_emit")
+    _launched(rc, name)
     return lt, eq, rows
+
+
+def block_count_emit(inter, blk, q):
+    """K2: K1 at stride 2 over the interleaved layout, plus each lookup's
+    docid rows r = min(lt >> 7, 7) and min(r + 1, 7) of its block as
+    rows[j] (2, 128), u32 patterns in int32 storage.  On a card every
+    block's hashes must be non-decreasing as u32 (the kernel searches)."""
+    _check(inter, blk, q, 2)
+    if inter.device.type == "cpu":
+        if CHECK_SORTED:
+            _check_sorted("block_count_emit", inter, blk, 2)
+        return block_count_emit_plain(inter, blk, q)
+    return _launch_emit("block_count_emit", inter, blk, q)
+
+
+def block_count_emit_scan(inter, blk, q):
+    """K2's first design, kept for comparison on the card: the same
+    (lt, eq, rows), counted over the whole block (any block)."""
+    _check(inter, blk, q, 2)
+    if inter.device.type == "cpu":
+        return block_count_emit_plain(inter, blk, q)
+    return _launch_emit("block_count_emit_scan", inter, blk, q)
 
 
 # ---- the reference's kernel entry points, same names and return contracts ----
 
 
 def block_lookup(hashes, blk, queries, stride: int = 1):
-    """(lo, cnt): lo = blk*BLOCK + lt (int64), cnt = eq (int32)."""
+    """(lo, cnt): lo = blk*BLOCK + lt (int64), cnt = eq (int32), by K1.
+    Precondition (unlike the reference's scan): every block that `blk`
+    names is non-decreasing as u32; on a card an unsorted block gives
+    wrong counts, unchecked."""
     lt, eq = block_count(hashes, blk, queries, stride)
     return blk.to(torch.int64) * BLOCK + lt, eq
 
@@ -220,7 +301,9 @@ block_lookup_wave = block_lookup  # the reference's explicit-DMA twin: same cont
 
 
 def block_lookup_emit(inter, blk, queries):
-    """(lo, cnt, rows (L, 2, 128)) over the interleaved layout."""
+    """(lo, cnt, rows (L, 2, 128)) over the interleaved layout, by K2.
+    Precondition: each looked-up block's hashes are non-decreasing as u32
+    (unchecked on a card, as for block_lookup)."""
     lt, eq, rows = block_count_emit(inter, blk, queries)
     return blk.to(torch.int64) * BLOCK + lt, eq, rows
 
@@ -230,9 +313,11 @@ block_lookup_emit_wave = block_lookup_emit
 
 def block_lookup_resident(hashes, blk, queries, lo_b=None, hi_b=None):
     """(lt, eq) of each query in 1024-entry chunk blk of a small table (the
-    reference's VMEM-resident kernel; on the card K1).  With `lo_b`/`hi_b`
-    (per-lookup absolute entry bounds) only entries in [lo_b, hi_b) count:
-    the reference's masked mode, K1m on the card."""
+    reference's VMEM-resident kernel; on the card K1, which requires every
+    looked-up chunk non-decreasing as u32, unchecked, as for block_lookup).
+    With `lo_b`/`hi_b` (per-lookup absolute entry bounds) only entries in
+    [lo_b, hi_b) count: the reference's masked mode, K1m on the card, which
+    scans and so takes any chunk."""
     if lo_b is None:
         return block_count(hashes, blk, queries, stride=1)
     return block_count_masked(hashes, blk, queries, lo_b, hi_b)
@@ -261,11 +346,12 @@ def tier_ranges_resident(tier, queries, valid_q, cap_k):
     hp = tier["hashes"]
     n_items = _n_items(tier)
     qf = queries.reshape(-1)
+    q32 = to_storage(qf)  # the kernels' query format, made once
 
     mini = u32(hp[::BLOCK])
     c = _landing_chunk(mini, qf)
     c0 = torch.clamp(c - 1, min=0)
-    lt2, eq2 = block_lookup_resident(hp, torch.cat([c0, c]), torch.cat([qf, qf]))
+    lt2, eq2 = block_lookup_resident(hp, torch.cat([c0, c]), torch.cat([q32, q32]))
     L = qf.shape[0]
     lt_b, eq_b = lt2[:L].to(torch.int64), eq2[:L].to(torch.int64)
     lt_c, eq_c = lt2[L:].to(torch.int64), eq2[L:].to(torch.int64)
@@ -308,6 +394,7 @@ def tier_ranges_blocked(tier, queries, valid_q, cap_k, emit: bool = False):
     # whose first hash is <= q; the run can reach back one block exactly
     # when that first hash == q.
     qf = queries.reshape(-1)
+    q32 = to_storage(qf)  # the kernels' query format, made once for both stages
     nblk_pad = -(-nblk // BLOCK) * BLOCK
     bi = block_index
     if nblk_pad != nblk:
@@ -315,10 +402,10 @@ def tier_ranges_blocked(tier, queries, valid_q, cap_k, emit: bool = False):
         bi = torch.cat([bi, pad])
     c = _landing_chunk(u32(bi[::BLOCK]), qf)
     if nblk_pad * 4 <= resident_max_bytes():
-        lt_c, cnt_c = block_lookup_resident(bi, c, qf)
+        lt_c, cnt_c = block_lookup_resident(bi, c, q32)
         ub = c * BLOCK + lt_c + cnt_c
     else:
-        lo_c, cnt_c = block_lookup(bi, c, qf)
+        lo_c, cnt_c = block_lookup(bi, c, q32)
         ub = lo_c + cnt_c
     ub = ub.reshape(B, Q)
     eq_top = cnt_c.to(torch.int64).reshape(B, Q)
@@ -348,10 +435,10 @@ def tier_ranges_blocked(tier, queries, valid_q, cap_k, emit: bool = False):
     n_w = window.sum()
     valid_w = torch.arange(w_cap, device=dev) < n_w
     fb0 = torch.where(valid_w, b0.reshape(-1)[sel], 0)
-    fq = torch.where(valid_w, qf[sel], 0)
+    fq = torch.where(valid_w, q32[sel], 0)
 
     ext_blk = torch.cat([blk_main, fb0])
-    ext_q = torch.cat([qf, fq])
+    ext_q = torch.cat([q32, fq])
     rows = None
     if emit:
         lo_all, cnt_all, rows_all = block_lookup_emit(postings, ext_blk, ext_q)
@@ -397,9 +484,10 @@ def mention_lookup_blocked(tier, cand_flat, valid=None):
     ids = tier["mention_ids"]
     cap = ids.shape[0]
     mention_len = tier["mention_len"].to(torch.int64)
+    cand32 = to_storage(cand_flat)  # the kernels' query format, made once
     if cap % BLOCK == 0 and cap * 4 <= resident_max_bytes():
         c = _landing_chunk(u32(ids[::BLOCK]), cand_flat)
-        lt, eq = block_lookup_resident(ids, c, cand_flat)
+        lt, eq = block_lookup_resident(ids, c, cand32)
         lo = c * BLOCK + lt
         return (eq > 0) & (lo < mention_len)
 
@@ -407,12 +495,12 @@ def mention_lookup_blocked(tier, cand_flat, valid=None):
     nblk = cap // BLOCK
     if top.shape[0] * 4 <= resident_max_bytes():
         c = _landing_chunk(u32(top[::BLOCK]), cand_flat)
-        lt_c, eq_c = block_lookup_resident(top, c, cand_flat)
+        lt_c, eq_c = block_lookup_resident(top, c, cand32)
         ub = c * BLOCK + lt_c + eq_c
     else:
         ub = upper_bound(top, cand_flat, 0, nblk)
     blk = torch.clamp(ub - 1, 0, nblk - 1)
     if valid is not None:
         blk = torch.where(valid, blk, 0)
-    lo, cnt = block_lookup(ids, blk, cand_flat)
+    lo, cnt = block_lookup(ids, blk, cand32)
     return (cnt > 0) & (lo < mention_len)

@@ -57,8 +57,9 @@ def u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def to_storage(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 storage of the same bit pattern."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+    """int64 values in [0, 2^32) -> int32 storage of the same bit pattern:
+    one cast, which keeps the low 32 bits (two's complement)."""
+    return x.to(torch.int32)
 
 
 def postings_cap(tier) -> int:

@@ -7,13 +7,24 @@ Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
      the host libraries (csrc/*.cc: codecs, the native search front, the
      load generator) start building with g++ in the background.
-  1. kernels: build K1 block_count, K1m block_count_masked and K2
-     block_count_emit from acoustid_index_tpu_torch/csrc, run them on a
-     64K-block table at the serving path's lookup count (256 queries x 128
-     hashes + the straddle tail; K1m with random [lo_b, hi_b) spans, some
-     across block edges, some empty) and hold them bit for bit against their
-     plain PyTorch versions; time both with CUDA events and work out each
-     kernel's bound from this run's inputs.
+  1. kernels: build every kernel of acoustid_index_tpu_torch/csrc (K1
+     block_count, K1m block_count_masked, K2 block_count_emit, and K1's and
+     K2's first, scanning designs block_count_scan / block_count_emit_scan)
+     and run them at the shapes the main path gives them (measure.py's
+     kernel cases): (a) K1 over a 1 MiB top index with a B=256 batch's
+     32,768 lookups; (b) K1 over a table of the live memory tier's size, two
+     lookups per query; (c) K1 stride 2 and K2 over a 2 GiB interleaved tier
+     (262,144 blocks, 240M live postings) with 32,768 + 2,048 lookups; (d)
+     the first 64K-block table (all four kernels; K1m with random
+     [lo_b, hi_b) spans); and K1 at L = 1, the launch floor.  Every kernel,
+     scan and torch.searchsorted yardstick must equal the plain PyTorch
+     version bit for bit on every input set; then they run in turns (new,
+     scan, yardstick, yardstick, scan, new), 5 rounds of 50 launches, cold
+     (cycling through input sets that together exceed the 50 MB L2 four
+     times: fresh lookups, and for (a) and (b) fresh table copies, as a
+     batch of the main path finds them) and warm (one set repeated), with
+     the SM clock and power draw read around each round, and each call's
+     bound is worked out from its inputs.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
      to disk, then reopen and serve through the CLI's own entry
@@ -25,7 +36,8 @@ Phases, each fatal on failure:
      deleted docs must vanish.  Then docs that share one hot hash, and
      queries for them that must take the search program's matrix branch and
      its sort branch.  K1's and K2's launch counters must grow during this
-     phase.  Then the same 512 searches through the native search front
+     phase, and the scanning designs' must stay 0.  Then the same 512
+     searches through the native search front
      (csrc/aitpu_front.cc + server/native_front.py, started by build_server
      with a search port) on the same index: every answer equal to the
      oracle and every body byte-equal to the Python server's; then ~10 s of
@@ -90,127 +102,39 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------- phase 1
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean ms per call over n calls, CUDA events, after one warm call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def phase1_kernels(dev):
-    import numpy as np
+    """The kernels at the main path's shapes (measure.py's cases) on
+    synthetic tables made from a seed; one record per case."""
     import torch
 
+    from acoustid_index_tpu_torch import measure as m
     from acoustid_index_tpu_torch.ops import _build
-    from acoustid_index_tpu_torch.ops import block_lookup as bl
     from acoustid_index_tpu_torch.ops.layout import BLOCK, to_storage
 
     t0 = time.perf_counter()
     _build.library()
     log(f"phase1: kernels built in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+        f"(nvcc {_build.build_seconds.get('kernels', 'cached')} s)")
 
-    nblk = 65536
+    # The serving tier's shape: 262,144 interleaved blocks (2 GiB) holding
+    # the 10M-doc corpus's 240M postings, then padding; a B=256 batch of
+    # ~120-hash queries, 20 of each 120 hashes stored ones; QUERY_SETS such
+    # batches, so that the cold turns find fresh lookups.
     g = torch.Generator(device=dev).manual_seed(1)
-    n = nblk * BLOCK
-    h = torch.sort(torch.randint(0, 0xFFFFFFFF, (n,), generator=g, device=dev, dtype=torch.int64)).values
-    # Equal runs across every 97th block boundary, and sentinel padding.
-    for b in range(1, nblk, 97):
-        h[b * BLOCK - 3 : b * BLOCK + 5] = h[b * BLOCK].item()
-    h[-3000:] = 0xFFFFFFFF
-    d = torch.randint(1, 0xFFFFFFFF, (n,), generator=g, device=dev, dtype=torch.int64)
-    hashes = to_storage(h)
-    inter = torch.stack([hashes.view(nblk, BLOCK), to_storage(d).view(nblk, BLOCK)], 1).reshape(-1).contiguous()
-
-    # The serving path's lookup stream: B*Q landing lookups + the w_cap tail.
-    L = 256 * 128 + 2048
-    pos = torch.randint(0, n, (L,), generator=g, device=dev)
-    blk = (pos // BLOCK).to(torch.int32)
-    q = h[pos]
-    q[1::7] = torch.randint(0, 0xFFFFFFFF, q[1::7].shape, generator=g, device=dev)  # misses
-    q[2::13] = 0xFFFFFFFF  # sentinel queries count the padding
-    blk[3::29] = 0  # dead lanes point at block 0
-
-    # K1m's spans: around each lookup's own position, so most cut its block
-    # and many cross into a neighbouring one; every 8th is empty (hi <= lo),
-    # every 8th covers the whole block.
-    lo = pos - torch.randint(0, 1536, (L,), generator=g, device=dev)
-    hi = pos + torch.randint(0, 1536, (L,), generator=g, device=dev)
-    hi[::8] = lo[::8] - torch.randint(0, 2, lo[::8].shape, generator=g, device=dev)
-    whole = blk[4::8].to(torch.int64) * BLOCK
-    lo[4::8], hi[4::8] = whole - 7, whole + BLOCK + 7
-    lo_b, hi_b = lo.clamp(0, n).to(torch.int32), hi.clamp(0, n).to(torch.int32)
-
-    cases = [
-        ("block_count", "stride1", lambda: bl.block_count(hashes, blk, q, 1), lambda: bl.block_count_plain(hashes, blk, q, 1)),
-        ("block_count", "stride2", lambda: bl.block_count(inter, blk, q, 2), lambda: bl.block_count_plain(inter, blk, q, 2)),
-        ("block_count_masked", "masked", lambda: bl.block_count_masked(hashes, blk, q, lo_b, hi_b),
-         lambda: bl.block_count_masked_plain(hashes, blk, q, lo_b, hi_b)),
-        ("block_count_emit", "emit", lambda: bl.block_count_emit(inter, blk, q), lambda: bl.block_count_emit_plain(inter, blk, q)),
-    ]
-    results = {}
-    for name, label, kern, plain in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
-        check(err == 0 and all(torch.equal(a, b) for a, b in zip(got, want)), f"{name}/{label} differs from its plain version (max abs err {err})")
-        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
-        bound_ms, bound_by, moved, ops = kernel_bound(label, blk, lo_b, hi_b, got, nblk)
-        log(f"phase1: {name}/{label} L={L} bit-equal to plain; kernel {ms:.4f} ms ({ms * 1e3 / L:.4f} us/lookup), "
-            f"plain {plain_ms:.4f} ms ({plain_ms * 1e3 / L:.4f} us/lookup); bound {bound_ms:.4f} ms by {bound_by} "
-            f"({moved} bytes, {ops} compares) = {100 * bound_ms / ms:.1f} % of the kernel's time")
-        results[(name, label)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "L": L,
-                                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "compares": ops}
-        if label == "masked":
-            cut = ((lo_b // BLOCK != blk) | ((hi_b - 1) // BLOCK != blk)) & (hi_b > lo_b)
-            results[(name, label)]["spans"] = {"empty": int((hi_b <= lo_b).sum()), "cut_by_a_block_edge": int(cut.sum())}
-    del h, d, hashes, inter
+    nblk, n_live = 262_144, m.N_DOCS * m.HASHES_PER_DOC
+    h = m.sorted_table(nblk * BLOCK, n_live, g, dev)
+    inter = m.interleave(h, torch.randint(1, 0xFFFFFFFF, h.shape, generator=g, device=dev, dtype=torch.int64))
+    qpool = torch.randint(0, 0xFFFFFFFF, (m.QUERY_SETS, m.LOOKUPS), generator=g, device=dev, dtype=torch.int64)
+    qpool[:, ::6] = h[torch.randint(0, n_live, qpool[:, ::6].shape, generator=g, device=dev)]
+    del h
+    mem = to_storage(m.sorted_table(m.MEM_TIER_CAP, m.MEM_TIER_LIVE, g, dev))
+    log(f"phase1: shape (b)'s table: {m.MEM_TIER_CAP} entries, {m.MEM_TIER_LIVE} live (the phase-2 memory tier)")
+    results = [m.run_case(c, log) for c in m.main_path_cases(inter, n_live, qpool, mem, g)]
+    del inter, mem
+    torch.cuda.empty_cache()
+    results += [m.run_case(c, log) for c in m.phase1_cases(dev, g)]
     torch.cuda.empty_cache()
     return results
-
-
-# The card's peaks (H100 SXM data sheet): HBM
-# bytes per second, and the float32 rate outside the tensor cores, taken as
-# the rate of the kernels' 32-bit integer compares.
-HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
-
-
-def kernel_bound(label, blk, lo_b, hi_b, got, nblk):
-    """(bound ms, "bytes" or "operations", bytes, compares) of one kernel
-    call on this run's inputs: each input byte the call needs read once,
-    each output written once.  A lookup needs its block's 1024 hashes (K1m:
-    only the entries in its span), so a block that several lookups share
-    counts once; K2 also needs the two 128-docid rows it copies out."""
-    import torch
-
-    from acoustid_index_tpu_torch.ops.layout import BLOCK
-
-    L = blk.shape[0]
-    b = blk.to(torch.int64).clamp(0, nblk - 1)
-    if label == "masked":
-        e = b[:, None] * BLOCK + torch.arange(BLOCK, device=blk.device)
-        need = torch.zeros(nblk * BLOCK, dtype=torch.bool, device=blk.device)
-        need[e[(e >= lo_b[:, None]) & (e < hi_b[:, None])]] = True
-        moved = int(need.sum()) * 4 + L * (4 + 4 + 4 + 4) + L * 8  # entries; blk, q, lo_b, hi_b; lt, eq
-        ops = L * BLOCK * 4  # two bound compares and two value compares per entry
-    else:
-        moved = int(torch.unique(b).numel()) * BLOCK * 4 + L * (4 + 4) + L * 8
-        ops = L * BLOCK * 2
-        if label == "emit":
-            r = torch.clamp(got[0].to(torch.int64) >> 7, max=7)
-            rows = torch.cat([b * 8 + r, b * 8 + torch.clamp(r + 1, max=7)])
-            moved += int(torch.unique(rows).numel()) * 128 * 4 + L * 256 * 4
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes", moved, ops) if t_bytes >= t_ops else (t_ops, "operations", moved, ops)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -299,10 +223,11 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
 
     from acoustid_index_tpu_torch import main as cli
     from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
-    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, doc_hashes, make_query, sorted_corpus
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, MEM_TIER_CAP, doc_hashes, make_query, sorted_corpus
     from acoustid_index_tpu_torch.multi.multi_index import MultiIndex
     from acoustid_index_tpu_torch.ops import block_lookup as bl
     from acoustid_index_tpu_torch.ops import search_kernel as sk
+    from acoustid_index_tpu_torch.ops.layout import postings_cap
     from acoustid_index_tpu_torch.utils.device import device
     from oracle import OracleSegment
 
@@ -457,6 +382,12 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
 
         stats["launches"] = dict(bl.LAUNCHES)
         stats["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
+
+        # The memory tier the native path searches: phase 1's shape (b).
+        mem_view = index.ensure_views(index.acquire_reader()).mem_view
+        stats["mem_tier"] = {"cap": postings_cap(mem_view), "live": int(mem_view["seg_len"].sum())}
+        check(stats["mem_tier"]["cap"] == MEM_TIER_CAP, f"memory tier {stats['mem_tier']}: phase 1's shape (b) assumed {MEM_TIER_CAP}")
+        log(f"phase2: live memory tier {stats['mem_tier']} (phase 1's shape (b): {MEM_TIER_CAP} entries)")
         log(f"phase2: launches during serving {stats['launches']}; batches/branches/host syncs {stats['branches']}")
 
         stats["native"] = native_path(mi, front, base, queries, segments)
@@ -625,14 +556,30 @@ def start_native_builds():
     return wait
 
 
-def kernel_entry(name, replaces, also, k, launches):
-    """One kernel's entry of the final `kernels` line."""
+def kernel_entry(name, variant, replaces, also, records, main_shape, launches):
+    """One kernel's entry of the final `kernels` line: `variant` ("new" or
+    "scan") of the phase-1 records of one kernel contract.  The top-level
+    times are those at `main_shape`, the shape of its heaviest main-path
+    call, cold (fresh input sets, as the main path finds them); "shapes"
+    holds every shape it ran at, with its warm time beside."""
+    def summary(r):
+        v = r["variants"][variant]
+        lib = r["variants"].get("searchsorted")
+        return {"L": r["L"], "timed": r["timed"], "ms": v["median_ms"], "ms_min": v["min_ms"], "ms_max": v["max_ms"],
+                "ms_warm": v.get("warm", v)["median_ms"],
+                "plain_ms": r["plain_ms"], "library_ms": lib["median_ms"] if lib else None,
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "needed_bytes": r["needed_bytes"],
+                "scan_bytes": r["scan_bytes"], "scan_bound_ms": r["scan_bound_ms"]}
+
+    shapes = {f"{r['shape']}-stride{r['stride']}": summary(r) for r in records}
+    top = shapes[main_shape]
     return {
         "name": name, "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
         "replaces": replaces, "also_replaces": also,
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None, "lookups": k["L"],
+        "max_abs_err": max(r["max_abs_err"] for r in records), "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+        "lookups": top["L"], "main_shape": main_shape, "shapes": shapes,
     }
 
 
@@ -664,32 +611,41 @@ def main() -> int:
     for path, launches in (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"])):
         check(launches["block_count"] > 0, f"K1 block_count never launched on the {path} path")
         check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
+        for scan in ("block_count_scan", "block_count_emit_scan"):
+            check(launches[scan] == 0, f"{scan} launched {launches[scan]} times on the {path} path")
     phase3_cli()
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m == "acoustid_index_tpu" or m.startswith("acoustid_index_tpu."))
     check(not ref_mods, f"modules of the JAX package were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
-    detail = {"phase1": {f"{a}/{b}": v for (a, b), v in kern.items()}, "phase2": serving, "total_s": total, "nvidia_smi": smi}
+    detail = {"phase1": kern, "phase2": serving, "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     log(f"total {total:.1f} s")
 
     def launches(name):
         return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name]}
 
-    k1 = dict(kern[("block_count", "stride2")])  # the file tier's layout; stride 1 checked bit-equal too
-    k1["max_abs_err"] = max(k1["max_abs_err"], kern[("block_count", "stride1")]["max_abs_err"])
+    def of(kernel):
+        return [r for r in kern if r["kernel"] == kernel]
+
+    k1_also = ["acoustid_index_tpu/ops/pallas_lookup.py:172", "acoustid_index_tpu/ops/pallas_lookup.py:484"]
     kernels = [
-        kernel_entry("block_count", "acoustid_index_tpu/ops/pallas_lookup.py:256",
-                     ["acoustid_index_tpu/ops/pallas_lookup.py:172", "acoustid_index_tpu/ops/pallas_lookup.py:484"],
-                     k1, launches("block_count")),
+        kernel_entry("block_count", "new", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also,
+                     of("block_count"), "a-stride1", launches("block_count")),
         # Masked mode has no caller on either path (nor in the JAX package):
         # its launches there are 0 by design; phase 1 checks it.
-        kernel_entry("block_count_masked", "acoustid_index_tpu/ops/pallas_lookup.py:496", [],
-                     kern[("block_count_masked", "masked")], launches("block_count_masked")),
-        kernel_entry("block_count_emit", "acoustid_index_tpu/ops/pallas_lookup.py:347",
+        kernel_entry("block_count_masked", "new", "acoustid_index_tpu/ops/pallas_lookup.py:496", [],
+                     of("block_count_masked"), "d-stride1", launches("block_count_masked")),
+        kernel_entry("block_count_emit", "new", "acoustid_index_tpu/ops/pallas_lookup.py:347",
                      ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
-                     kern[("block_count_emit", "emit")], launches("block_count_emit")),
+                     of("block_count_emit"), "c-stride2", launches("block_count_emit")),
+        # K1's and K2's first designs, timed beside them; no main-path caller.
+        kernel_entry("block_count_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also,
+                     of("block_count"), "a-stride1", launches("block_count_scan")),
+        kernel_entry("block_count_emit_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:347",
+                     ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
+                     of("block_count_emit"), "c-stride2", launches("block_count_emit_scan")),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,6 +27,7 @@ import requests
 from acoustid_index_tpu_torch.engine.model import Insert
 from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
 from acoustid_index_tpu_torch.multi.multi_index import MultiIndex, SearchRequestParams
+from acoustid_index_tpu_torch.ops import block_lookup as port_bl
 from acoustid_index_tpu_torch.server.app import App
 from acoustid_index_tpu_torch.server.http import HttpServer
 from acoustid_index_tpu_torch.server.native_front import NativeFront
@@ -36,6 +37,12 @@ from oracle import OracleSegment, oracle_search
 MSGPACK_CT = "application/vnd.msgpack"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_DOCS = 300
+
+
+@pytest.fixture(autouse=True)
+def _sorted_tables_only(monkeypatch):
+    # Every table the front's searches hand K1/K2 must suit their search.
+    monkeypatch.setattr(port_bl, "CHECK_SORTED", True)
 
 
 def _corpus():

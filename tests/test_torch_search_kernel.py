@@ -28,6 +28,7 @@ from acoustid_index_tpu_torch.engine import model as port_model
 from acoustid_index_tpu_torch.engine import segments as port_segments
 from acoustid_index_tpu_torch.engine.searcher import Searcher, _params_for
 from acoustid_index_tpu_torch.engine.segments import tier_from_numpy
+from acoustid_index_tpu_torch.ops import block_lookup as port_bl
 from acoustid_index_tpu_torch.ops import search_kernel as port_sk
 
 from oracle import OracleSegment, oracle_search
@@ -44,6 +45,8 @@ def _small_interpret_steps(monkeypatch):
     # step; small steps keep their interpret-mode runs fast.
     for k in ("AITPU_LOOKUP_G", "AITPU_EMIT_G", "AITPU_RESIDENT_G", "AITPU_WAVE_G"):
         monkeypatch.setenv(k, "8")
+    # Every table the search program hands K1/K2 must suit their search.
+    monkeypatch.setattr(port_bl, "CHECK_SORTED", True)
 
 
 def seg_from_docs(docs, commit_id, deletes=()):

@@ -20,6 +20,7 @@ import torch
 
 from acoustid_index_tpu.server import http as ref_http
 from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
+from acoustid_index_tpu_torch.ops import block_lookup as port_bl
 from acoustid_index_tpu_torch.server import http as port_http
 
 from server_fixture import post_search
@@ -34,6 +35,8 @@ def _cpu(monkeypatch):
     # depend on their lookups per grid step, and small steps keep it fast.
     for k in ("AITPU_LOOKUP_G", "AITPU_EMIT_G", "AITPU_RESIDENT_G", "AITPU_WAVE_G"):
         monkeypatch.setenv(k, "8")
+    # Every table the served searches hand K1/K2 must suit their search.
+    monkeypatch.setattr(port_bl, "CHECK_SORTED", True)
 
 
 class _Node:
