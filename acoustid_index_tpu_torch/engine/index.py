@@ -25,8 +25,12 @@ snapshots and rebuilt only when the file set changes; the memory tier
 repacks per write (bounded by the checkpoint threshold).
 
 The port's copy of acoustid_index_tpu/engine/index.py: its relative imports
-resolve to the port's own modules, and the merge call sites run the host
-merge (memseg.merge_segments) because the device merge is not ported yet.
+resolve to the port's own modules.  Every merge goes through
+device_merge.merge_segments_auto, as in the reference: big runs merge on
+the device, small ones on the host, and the index counts both routes and
+any fallback from device to host in `merge_counts` (the metrics count
+them too, the fold of a long WAL tail at open included).  A checkpoint's merge,
+file write and tier pack are profiler spans (utils/profiling.trace).
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from . import filefmt, manifest
 from ..server import metrics
+from ..utils.profiling import trace
+from .device_merge import MergeCounts, merge_segments_auto
 from .errors import SearchTimeout, VersionRequired
-from .memseg import Segment, build_segment, merge_segments
+from .memseg import Segment, build_segment
 from .merge_policy import TieredMergePolicy
 from .model import Change, SearchOptions, SearchResult, SegmentInfo, Transaction
 from .oplog import Oplog
@@ -70,6 +76,7 @@ class Index:
         self.checkpoint_threshold = checkpoint_threshold
         self.checkpoint_age = checkpoint_age
         self.searcher = searcher or default_searcher()
+        self.merge_counts = MergeCounts()
 
         self._write_lock = threading.RLock()
         self._snapshot_lock = threading.Lock()
@@ -184,7 +191,7 @@ class Index:
             # tail into one segment.  Supersession inside the fold needs the
             # whole collection as the oracle.
             whole = Snapshot(file=tuple(file_segments), memory=tuple(memory_segments))
-            memory_segments = [merge_segments(memory_segments, whole)]
+            memory_segments = [merge_segments_auto(memory_segments, whole)]
 
         commit_id = max(file_commit_id, oplog.last_commit_id)
         version = max(file_version, oplog.last_version)
@@ -288,7 +295,7 @@ class Index:
                 if snapshot.mem_view is PENDING_VIEW:
                     memory = snapshot.memory
                     if len(memory) > MEMORY_SLOTS:
-                        merged = merge_segments(memory, snapshot)
+                        merged = merge_segments_auto(memory, snapshot, self.merge_counts)
                         with self._write_lock:
                             cur = self.acquire_reader()
                             if len(cur.memory) >= len(memory) and all(
@@ -458,7 +465,7 @@ class Index:
         if cand is None:
             return False
         lo, hi = cand.start, cand.end
-        merged = merge_segments(mem[lo:hi], cur)
+        merged = merge_segments_auto(mem[lo:hi], cur, self.merge_counts)
         with self._write_lock:
             cur2 = self.acquire_reader()
             if len(cur2.memory) < hi or any(
@@ -483,8 +490,7 @@ class Index:
             if cand is None:
                 return False
             lo, hi = cand.start, cand.end
-        # Merges run on the host here; the device merge is not ported yet.
-        merged = merge_segments(mem[lo:hi], cur)
+        merged = merge_segments_auto(mem[lo:hi], cur, self.merge_counts)
         self._install_memory(cur, mem[:lo] + (merged,) + mem[hi:])
         log.info("merged %d memory segments -> %s (%d items)", hi - lo, merged.info, merged.num_items)
         return True
@@ -535,8 +541,10 @@ class Index:
 
         # Merge outside the write lock; updates keep flowing (they append to
         # the memory suffix; the flushed prefix is stable).
-        fseg = merge_segments(cur.memory, cur)
-        filefmt.write_segment(self.data_dir, fseg)
+        with trace("checkpoint.merge"):
+            fseg = merge_segments_auto(cur.memory, cur, self.merge_counts)
+        with trace("checkpoint.write"):
+            filefmt.write_segment(self.data_dir, fseg)
 
         with self._write_lock:
             latest = self.acquire_reader()
@@ -550,17 +558,18 @@ class Index:
                 return True
             kept = latest.memory[flush_count:]
             new_file = latest.file + (fseg,)
-            snap = Snapshot(
-                file=new_file,
-                memory=kept,
-                commit_id=self.commit_id,
-                file_commit_id=max(self.file_commit_id, fseg.info.last_commit_id()),
-                version=self.version,
-                file_version=max(self.file_version, fseg.info.effective_version()),
-                external_versions=self.external_versions,
-                file_view=self.searcher.pack_file_tier(new_file, owner=self.path),
-                mem_view=self.searcher.pack_mem_tier(kept, owner=self.path),
-            )
+            with trace("checkpoint.pack"):
+                snap = Snapshot(
+                    file=new_file,
+                    memory=kept,
+                    commit_id=self.commit_id,
+                    file_commit_id=max(self.file_commit_id, fseg.info.last_commit_id()),
+                    version=self.version,
+                    file_version=max(self.file_version, fseg.info.effective_version()),
+                    external_versions=self.external_versions,
+                    file_view=self.searcher.pack_file_tier(new_file, owner=self.path),
+                    mem_view=self.searcher.pack_mem_tier(kept, owner=self.path),
+                )
             manifest.write_manifest(self.data_dir, [s.info for s in new_file])  # COMMIT
             self._swap(snap)
             self._pending_since = None if not kept else time.monotonic()
@@ -594,7 +603,7 @@ class Index:
             return False
 
         retired = cur.file[lo:hi]
-        fseg = merge_segments(retired, cur)
+        fseg = merge_segments_auto(retired, cur, self.merge_counts)
         filefmt.write_segment(self.data_dir, fseg)
 
         with self._write_lock:

@@ -5,8 +5,9 @@ Queries are sorted and de-duplicated up front (a duplicate query hash
 counts once, as in the reference's IndexReader.search) and padded to a
 query bucket.  The BatchingSearcher keeps the reference's pipeline: a
 dispatcher thread packs concurrent requests into one batch and launches it
-on a searcher-owned CUDA stream; collector threads wait on each batch's
-event and hand rows back to the callers.
+on a searcher-owned CUDA stream, inside a `search_dispatch[rows/batch]`
+profiler span (utils/profiling.trace); collector threads wait on each
+batch's event and hand rows back to the callers.
 
 What the port leaves out: the reference's background precompiler, its
 superset-bucket program choice and its warm-up launches exist to hide XLA
@@ -31,6 +32,7 @@ import torch
 from ..ops.layout import postings_cap
 from ..ops.search_kernel import SearchParams, search_segments_batch_packed_io
 from ..server import metrics
+from ..utils.profiling import trace
 from .errors import SearchTimeout
 from .model import SearchOptions, SearchResult
 from .segments import FILE_SLOTS, MEMORY_SLOTS, Snapshot, pack_tier, tier_view_for_search
@@ -493,7 +495,8 @@ class BatchingSearcher(Searcher):
             params = _params_for(key[2], key[3])
             b = _batch_size(len(batch))
             try:
-                handle = self._launch(batch[0].snapshot, params, _pack_rows(params, [r.padded for r in batch], b))
+                with trace(f"search_dispatch[{len(batch)}/{b}]"):
+                    handle = self._launch(batch[0].snapshot, params, _pack_rows(params, [r.padded for r in batch], b))
             except Exception as exc:  # noqa: BLE001 -- propagated per-request
                 with self._qlock:
                     self._inflight -= 1

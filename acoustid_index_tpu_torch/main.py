@@ -5,10 +5,10 @@ README "Configuration"); unknown flags warn and continue.
 
 The port's copy of acoustid_index_tpu/main.py; its imports are the port's
 own modules.  It differs in the flags whose subsystems are not ported yet
-(--legacy-port, --profile-port, --mesh-shards), which exit with an error
-instead of starting them, and in build_server()/stop_server(), split out of
-run_server() so that an in-process caller (chip_smoke.py) serves through the
-same entry as the CLI.
+(--profile-port: torch has no counterpart of jax.profiler's live server;
+--mesh-shards), which exit with an error instead of starting them, and in
+build_server()/stop_server(), split out of run_server() so that an
+in-process caller (chip_smoke.py) serves through the same entry as the CLI.
 """
 
 from __future__ import annotations
@@ -56,15 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # Flags whose subsystems import jax in the reference and are not ported yet.
-NOT_PORTED = ("legacy_port", "profile_port", "mesh_shards")
+NOT_PORTED = ("profile_port", "mesh_shards")
 
 
 def build_server(args):
     """Open the indexes under args.dir and bind the HTTP front to them,
     not serving yet.  With args.search_port, the native search plane
     (server/native_front.py) starts serving search on that port at once
-    (-1 binds port 0; its port is then front.port).  Returns (server, mi,
-    replicator, front), front None without a search port; serve HTTP with
+    (-1 binds port 0; its port is then front.port); with args.legacy_port,
+    so does the legacy line protocol (server/legacy.py; read-only on a
+    replica).  Returns (server, mi, replicator, front, legacy), front and
+    legacy None without their ports; serve HTTP with
     server.serve_background() and end with stop_server().  run_server()
     is the CLI's loop around it; in-process callers call it directly."""
     from .multi.multi_index import MultiIndex
@@ -98,6 +100,13 @@ def build_server(args):
     app = App(mi)
     server = HttpServer(args.host, args.port, app.router, app.error_response, app.not_found)
 
+    legacy = None
+    if args.legacy_port:
+        from .server.legacy import LegacyServer
+
+        legacy = LegacyServer(args.host, args.legacy_port, mi, read_only=replicator is not None)
+        legacy.serve_background()
+
     front = None
     if args.search_port:
         from .server.native_front import NativeFront
@@ -105,15 +114,18 @@ def build_server(args):
         front = NativeFront(mi, max(args.search_port, 0))  # -1 = bind port 0
         front.start()
         logging.info("native search plane on 127.0.0.1:%d", front.port)
-    return server, mi, replicator, front
+    return server, mi, replicator, front, legacy
 
 
-def stop_server(server, mi, replicator, front=None) -> None:
+def stop_server(server, mi, replicator, front=None, legacy=None) -> None:
     """Stop a server that build_server() made and serve_background() ran."""
     server.shutdown()
     server.server_close()
     if front is not None:
         front.stop()
+    if legacy is not None:
+        legacy.shutdown()
+        legacy.server_close()
     if replicator is not None:
         replicator.stop()
     mi.close()
@@ -122,7 +134,7 @@ def stop_server(server, mi, replicator, front=None) -> None:
 
 
 def run_server(args) -> None:
-    server, mi, replicator, front = build_server(args)
+    server, mi, replicator, front, legacy = build_server(args)
     logging.info("serving on %s:%d (dir=%s)", args.host, server.port, args.dir)
     print(f"LISTENING {server.port}", flush=True)
     if front is not None:
@@ -153,7 +165,7 @@ def run_server(args) -> None:
     server.serve_background()
     stop.wait()
     logging.info("shutting down")
-    stop_server(server, mi, replicator, front)
+    stop_server(server, mi, replicator, front, legacy)
     # All durability work is behind us (WAL synced, manifests written).
     # Skip interpreter finalization, which could tear the interpreter down
     # under a daemon thread still inside native code.

@@ -424,6 +424,39 @@ def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, li
     return finish(res, totals, trunc | overs | c_over)
 
 
+def _tier_device(tier) -> torch.device:
+    return next(v.device for v in tier.values() if isinstance(v, torch.Tensor))
+
+
+def _values(x, dev) -> torch.Tensor:
+    """u32 or non-negative int values (tensor, array or scalar; int32
+    storage included) -> int64 values on `dev`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x).astype(np.int64))
+    return u32(x.to(dev))
+
+
+@torch.inference_mode()
+def search_segments_batch(params: SearchParams, file_tier, mem_tier, query, q_len, limit, min_score, pct):
+    """Batched search: query (B, Q) and q_len/limit/min_score/pct (B,) carry
+    a leading batch dimension; the tables are shared.  Returns the output
+    dict of (B, ...) tensors on the tiers' device."""
+    dev = _tier_device(file_tier)
+    return _search_batch_impl(params, file_tier, mem_tier, *(_values(x, dev) for x in (query, q_len, limit, min_score, pct)))
+
+
+def _search_one(p: SearchParams, file_tier, mem_tier, query, q_len, limit, min_score, pct):
+    """Single-query search (query (Q,), scalars): a batch of one."""
+    dev = _tier_device(file_tier)
+    scalars = (_values(x, dev).reshape(1) for x in (q_len, limit, min_score, pct))
+    out = search_segments_batch(p, file_tier, mem_tier, _values(query, dev)[None, :], *scalars)
+    return {k: v[0] for k, v in out.items()}
+
+
+# The reference's jitted single-query entry; nothing is compiled here.
+search_segments = _search_one
+
+
 def pack_outputs(out) -> torch.Tensor:
     """The output dict as ONE (B, 2*out_len + 5) int32 tensor of u32 bit
     patterns: ids | scores | count | postings_scanned | truncated |

@@ -8,7 +8,8 @@ time.  Recording never fails the measured operation; series for an index
 are removed when it is deleted.
 
 The port's copy of acoustid_index_tpu/server/metrics.py: the same code, its relative
-imports resolving to the port's own modules.
+imports resolving to the port's own modules, plus the merge counters by
+route (inc_merges: aitpu_merges_{device,host,fallback}_total).
 """
 
 from __future__ import annotations
@@ -96,6 +97,13 @@ def inc_memory_merges():
 def inc_file_merges():
     with _lock:
         _globals["file_merges"] += 1
+
+
+def inc_merges(route: str):
+    """A segment merge by route (engine/device_merge.py): `device`, `host`,
+    or `fallback` (a device merge that raised and ran on the host)."""
+    with _lock:
+        _globals[f"merges_{route}"] += 1
 
 
 def inc_searches_abandoned(n: int = 1):

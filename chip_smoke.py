@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of acoustid_index_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py    # one card, ~5 minutes; exits 2 without CUDA
+    python3 chip_smoke.py    # one card, ~3 minutes; exits 2 without CUDA
 
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
@@ -25,9 +25,17 @@ Phases, each fatal on failure:
      batch of the main path finds them) and warm (one set repeated), with
      the SM clock and power draw read around each round, and each call's
      bound is worked out from its inputs.
+  1b. the device merge (engine/device_merge.py): runs of 8 sources holding
+     10^5, 10^6 and 10^7 postings (re-inserts and deletes across sources,
+     tombstones, a newer source outside the run, hash and doc id
+     0xFFFFFFFF) merged on the card must equal the host merger's Segment
+     in every field, bit for bit; then both merge each run in turns, 3
+     rounds, and the size from which the card is faster is logged.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
-     to disk, then reopen and serve through the CLI's own entry
+     to disk through merge_segments_auto (it must take the device merge,
+     with no fallback to the host), then reopen and serve through the CLI's
+     own entry
      (acoustid_index_tpu_torch.main.build_server) in this process, so the
      launch counters can be read, and send >= 256 searches from 32 client
      threads; every answer must equal tests/oracle.py over the corpus, which
@@ -45,13 +53,20 @@ Phases, each fatal on failure:
      separate process, every response holding its expected first result;
      K1's and K2's launch counters must grow during this path too.  Last, the
      same load against fronts of 1, 2, 4 and 8 pumps.
+  2b. the model wrapper at the same width: FingerprintSearchModel.ingest of
+     the 240M postings on the card, then one B=256 forward under a
+     profiler capture (utils/profiling.py; its trace must hold the
+     kernels): every answer equal to the oracle, K1's and K2's launch
+     counters grown; then entry() once.
   3. the CLI entry: `python -m acoustid_index_tpu_torch.main --port 0
-     --search-port -1` serves a PUT and a search on each of its two ports,
-     and stops on SIGTERM.
+     --search-port -1 --legacy-port N` serves a PUT and a search on its
+     HTTP and native ports, a begin/insert/commit/search session on its
+     legacy port whose answer equals the HTTP search, and stops on SIGTERM.
 
 The run fails if jax or any module of acoustid_index_tpu was imported.
 The last three lines of stdout are the card's nvidia-smi line, a JSON
-object of per-kernel results, and {"ok": true, "device": {...}}.
+object of per-kernel results, and {"ok": true, "device": {...}}; every
+phase's figures also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -74,6 +89,10 @@ QUERY_OPTS = {"limit": 10, "min_score": 6, "score_pct": 10, "timeout": 10_000}
 LOADGEN_S, LOADGEN_SWEEP_S = 10, 5  # seconds of load on the native front
 LOADGEN_CONNS = 256  # the load generator's keep-alive connections
 PUMPS_SWEEP = (1, 2, 4, 8)  # fronts of these pump counts (the default is 1), outside the counted window
+MERGE_SOURCES = 8  # phase 1b: sources of each merged run (plus one newer source outside it)
+MERGE_SIZES = (100_000, 1_000_000, 10_000_000)  # phase 1b: postings of the runs, each checked bit for bit and timed
+MERGE_ROUNDS = 3
+MODEL_BATCH = 256  # phase 2b: queries of the model wrapper's forward
 
 
 def log(msg: str) -> None:
@@ -97,6 +116,30 @@ def nvidia_smi_line() -> str:
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def profiled(fn):
+    """fn() under utils.profiling.capture; returns (fn's result, ms per
+    span name and on the card by kind, names of the card's kernels), read
+    from the capture's Chrome trace (its `dur` is in microseconds)."""
+    from acoustid_index_tpu_torch.utils import profiling
+
+    kinds = {"kernel": "card:kernels", "gpu_memcpy": "card:memcpy", "gpu_memset": "card:memset"}
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiling.capture(trace_dir):
+            result = fn()
+        (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    totals = {}
+    for e in events:
+        key = e["name"] if e.get("cat") == "user_annotation" else kinds.get(e.get("cat"))
+        if key:
+            totals[key] = totals.get(key, 0.0) + e["dur"] / 1e3
+    return result, totals, {e["name"] for e in events if e.get("cat") == "kernel"}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -135,6 +178,104 @@ def phase1_kernels(dev):
     results += [m.run_case(c, log) for c in m.phase1_cases(dev, g)]
     torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------- phase 1b
+
+
+def merge_run(total: int, seed: int):
+    """A run of MERGE_SOURCES sources holding ~`total` postings of 24-hash
+    docs (commit ids 1..8), and the collection it lives in: the run plus
+    one newer source.  Consecutive sources overlap by a quarter of their
+    docs (re-inserts with new hashes); every source deletes docs of earlier
+    ones and some never inserted (tombstones); every 97th doc carries hash
+    0xFFFFFFFF; doc 0xFFFFFFFF is inserted, deleted and inserted again; the
+    newer source re-inserts and deletes docs of the run."""
+    import numpy as np
+
+    from acoustid_index_tpu_torch.engine.memseg import build_segment
+    from acoustid_index_tpu_torch.engine.model import BulkInsert, Delete, Insert, SegmentInfo
+    from acoustid_index_tpu_torch.engine.segments import Snapshot
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, doc_hashes
+
+    rng = np.random.default_rng(seed)
+    per = max(total // MERGE_SOURCES // HASHES_PER_DOC, 8)
+    step = per * 3 // 4
+    segs = []
+    for k in range(MERGE_SOURCES + 1):
+        lo = 1 + k * step
+        if k == MERGE_SOURCES:  # newer than the run: re-inserts the middle sources' docs
+            lo = 1 + 3 * step
+        ids = np.arange(lo, lo + per, dtype=np.uint32)
+        h = doc_hashes(ids) ^ np.uint32((k * 0x9E3779B9) & 0xFFFFFFFF)
+        h[::97, 0] = 0xFFFFFFFF
+        offsets = np.arange(0, (per + 1) * HASHES_PER_DOC, HASHES_PER_DOC, dtype=np.uint32)
+        changes = [BulkInsert(ids=ids, hashes=h.reshape(-1), offsets=offsets)]
+        dels = rng.integers(1, lo + per + step, max(per // 50, 2))
+        changes += [Delete(id=int(i)) for i in dels if not lo <= i < lo + per]
+        if k in (2, 6):
+            changes.append(Insert(id=0xFFFFFFFF, hashes=[0xFFFFFFFF, 5 + k, 0xFFFFFFFF]))
+        elif k == 4:
+            changes.append(Delete(id=0xFFFFFFFF))
+        segs.append(build_segment(changes, SegmentInfo(commit_id=k + 1)))
+    return segs[:MERGE_SOURCES], Snapshot(file=tuple(segs))
+
+
+def phase1b_merge(dev):
+    """The device merge against the host merger at each of MERGE_SIZES:
+    bit-equal, then both timed in turns, then one device merge profiled."""
+    import numpy as np
+    import torch
+
+    from acoustid_index_tpu_torch.engine.device_merge import merge_segments_device
+    from acoustid_index_tpu_torch.engine.memseg import merge_segments
+
+    out = {"sizes": {}}
+    for total in MERGE_SIZES:
+        run, collection = merge_run(total, seed=total % 1000 + 1)
+        postings = sum(s.num_items for s in run)
+        t0 = time.perf_counter()
+        want = merge_segments(run, collection)
+        host_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = merge_segments_device(run, collection, device=dev)
+        device_first = time.perf_counter() - t0
+        for f in ("info", "min_doc_id", "max_doc_id", "metadata"):
+            check(getattr(got, f) == getattr(want, f), f"device merge at {postings} postings: {f} differs")
+        for f in ("hashes", "docids", "docs_ids", "docs_alive"):
+            a, b = getattr(got, f), getattr(want, f)
+            check(a.dtype == b.dtype and np.array_equal(a, b), f"device merge at {postings} postings: {f} differs")
+        ffff = int(np.searchsorted(want.docs_ids, np.uint32(0xFFFFFFFF)) < want.num_docs)
+        check(ffff and (want.hashes == 0xFFFFFFFF).any(), f"the run at {postings} postings lost its 0xFFFFFFFF cases")
+        times = {"host": [], "device": []}
+        for r in range(MERGE_ROUNDS):  # in turns: host, device, device, host, ...
+            for route in (("host", "device") if r % 2 == 0 else ("device", "host")):
+                t0 = time.perf_counter()
+                if route == "host":
+                    merge_segments(run, collection)
+                else:
+                    merge_segments_device(run, collection, device=dev)
+                times[route].append(time.perf_counter() - t0)
+        rec = {"postings": postings, "sources": len(run), "kept": want.num_items, "docs": want.num_docs,
+               "doc_ffff_kept": ffff, "host_first_s": host_first, "device_first_s": device_first,
+               "host_s": times["host"], "device_s": times["device"],
+               "host_median_s": float(np.median(times["host"])), "device_median_s": float(np.median(times["device"]))}
+        # Where the device merge's time goes: one more call, profiled.
+        _, spans, _ = profiled(lambda: merge_segments_device(run, collection, device=dev))
+        rec["device_spans_ms"] = spans
+        out["sizes"][str(total)] = rec
+        log(f"phase1b: {len(run)} sources, {postings} postings -> {want.num_items} kept, {want.num_docs} docs; "
+            f"device merge bit-equal to the host merge; host {rec['host_median_s'] * 1e3:.3f} ms, device "
+            f"{rec['device_median_s'] * 1e3:.3f} ms (medians of {MERGE_ROUNDS} in turns; first calls "
+            f"{host_first * 1e3:.3f} / {device_first * 1e3:.3f} ms); one more device merge under the profiler, ms: "
+            + json.dumps({k: round(v, 3) for k, v in sorted(spans.items())}))
+        del run, collection, want, got
+        torch.cuda.empty_cache()
+    faster = [int(t) for t, r in out["sizes"].items() if r["device_median_s"] < r["host_median_s"]]
+    out["crossover"] = min(faster) if faster else None
+    log(f"phase1b: the device merge is faster from {out['crossover']} postings on "
+        f"(sizes {list(MERGE_SIZES)}; DEVICE_MERGE_MIN_POSTINGS routes from 1,000,000)")
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -217,13 +358,13 @@ def post_updates(base: str, changes) -> None:
         check(r.status_code == 200, f"_update failed: {r.status_code} {r.text}")
 
 
-def phase2_serving(n_docs: int, n_requests: int, native_built):
+def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
     import numpy as np
     import requests
 
     from acoustid_index_tpu_torch import main as cli
     from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
-    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, MEM_TIER_CAP, doc_hashes, make_query, sorted_corpus
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, MEM_TIER_CAP, doc_hashes, make_query
     from acoustid_index_tpu_torch.multi.multi_index import MultiIndex
     from acoustid_index_tpu_torch.ops import block_lookup as bl
     from acoustid_index_tpu_torch.ops import search_kernel as sk
@@ -238,9 +379,13 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
     try:
         # Bulk load with the index's maintenance thread stopped, so that no
         # background memory merge can abort the one forced checkpoint that
-        # writes the whole load as one file segment.  (Index.flush() merges
-        # the memory tier on the host before it checkpoints: 527 s at this
-        # scale on the H100 machine, against ~115 s for the checkpoint alone.)
+        # writes the whole load as one file segment: its ten sources merge
+        # on the card (merge_segments_auto -> the device merge).
+        # (Index.flush() would first fold the memory tier into one segment,
+        # now also on the card, and then checkpoint that single segment,
+        # which merge_segments_auto leaves to the host merger: one source.
+        # With both merges on the host it took 527 s at this scale, against
+        # ~115 s for the forced checkpoint; NVIDIA H100 80GB HBM3, 700 W.)
         t0 = time.perf_counter()
         loader = BatchingSearcher()
         mi = MultiIndex.open(tmp, searcher=loader, checkpoint_age=None,
@@ -254,15 +399,22 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
                 ids = np.arange(lo, min(lo + step, n_docs + 1), dtype=np.uint32)
                 ref.index.bulk_insert(ids, doc_hashes(ids))
             stats["bulk_insert_s"] = time.perf_counter() - t0
+            stats["checkpoint_sources"] = len(ref.index.acquire_reader().memory)
             t1 = time.perf_counter()
-            ref.index.checkpoint(force=True)
+            _, stats["checkpoint_spans_ms"], _ = profiled(lambda: ref.index.checkpoint(force=True))
             stats["checkpoint_s"] = time.perf_counter() - t1
             check(not ref.index.acquire_reader().memory, "the checkpoint left memory segments")
+            stats["checkpoint_merges"] = ref.index.merge_counts.as_dict()
         finally:
             mi._release_ref(ref)
         mi.close()
         loader.close()
-        log(f"phase2: ingested {n_docs} docs in {stats['bulk_insert_s']:.1f} s, checkpointed to disk in {stats['checkpoint_s']:.1f} s")
+        merges = stats["checkpoint_merges"]
+        log(f"phase2: ingested {n_docs} docs in {stats['bulk_insert_s']:.1f} s, checkpointed "
+            f"{stats['checkpoint_sources']} memory segments to disk in {stats['checkpoint_s']:.3f} s "
+            f"(under the profiler, its export included); merges by route {merges}; spans, ms: "
+            + json.dumps({k: round(v, 3) for k, v in sorted(stats["checkpoint_spans_ms"].items())}))
+        check(merges["device"] >= 1 and merges["fallback"] == 0, f"the checkpoint did not merge on the card: {merges}")
 
         # Reopen and serve as the CLI does, with a fresh process-wide searcher.
         t1 = time.perf_counter()
@@ -270,7 +422,7 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
         args = cli.build_parser().parse_args(["--dir", tmp, "--host", "127.0.0.1", "--port", "0", "--checkpoint-age-ms", "0",
                                               "--search-port", "-1"])
         served = cli.build_server(args)
-        server, mi, _, front = served
+        server, mi, _, front, _ = served
         server.serve_background()  # at once: stop_server's shutdown() waits for a serving loop
         stats["reopen_s"] = time.perf_counter() - t1
         ref = mi._get_ref("main")
@@ -284,10 +436,6 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
         stats["file_tier_bytes"] = inter.numel() * 4
         log(f"phase2: reopened from disk in {stats['reopen_s']:.1f} s; file tier inter {inter.numel() * 4 / 2**30:.2f} GiB on {inter.device}")
         del snap, inter
-
-        t1 = time.perf_counter()
-        base_seg = BaseSegment(*sorted_corpus(n_docs, dev), n_docs)
-        stats["oracle_sort_s"] = time.perf_counter() - t1
 
         base = f"http://127.0.0.1:{server.port}"
 
@@ -391,6 +539,8 @@ def phase2_serving(n_docs: int, n_requests: int, native_built):
         log(f"phase2: launches during serving {stats['launches']}; batches/branches/host syncs {stats['branches']}")
 
         stats["native"] = native_path(mi, front, base, queries, segments)
+        stats["serving_merges"] = index.merge_counts.as_dict()
+        check(stats["serving_merges"]["fallback"] == 0, f"a merge fell back to the host: {stats['serving_merges']}")
         return stats
     finally:
         if served is not None:
@@ -481,16 +631,102 @@ def native_path(mi, front, py_base, queries, segments):
     return out
 
 
+# ---------------------------------------------------------------- phase 2b
+
+
+def phase2b_model(dev, n_docs: int, base_seg):
+    """The model wrapper at the bench's width: ingest phase 2's corpus on
+    the card, one B = MODEL_BATCH forward under a profiler capture, every
+    answer equal to the oracle; then entry() once."""
+    import numpy as np
+    import torch
+
+    from acoustid_index_tpu_torch.engine.searcher import _params_for
+    from acoustid_index_tpu_torch.entry import entry
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, doc_hashes, make_query
+    from acoustid_index_tpu_torch.models.fingerprint_search import FingerprintSearchModel
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from oracle import oracle_search
+
+    stats = {}
+    ids = np.arange(1, n_docs + 1, dtype=np.uint32)
+    hashes = doc_hashes(ids).reshape(-1)
+    doc_ids = np.repeat(ids, HASHES_PER_DOC)
+    params = _params_for(128)
+    model = FingerprintSearchModel(params, device=dev)
+    t0 = time.perf_counter()
+    table = model.ingest(hashes, doc_ids)
+    torch.cuda.synchronize()
+    stats["ingest_s"] = time.perf_counter() - t0
+    del hashes, doc_ids
+    check("inter" in table.file_tier and table.file_tier["inter"].device.type == "cuda",
+          "the model's table is not the interleaved tier on the card")
+    check((table.n_postings, table.n_docs) == (n_docs * HASHES_PER_DOC, n_docs), f"table of {table.n_postings} postings")
+    log(f"phase2b: FingerprintSearchModel.ingest of {table.n_postings} postings on the card in {stats['ingest_s']:.3f} s "
+        f"(device sort + the port's packing: {table.file_tier['inter'].numel() * 4 / 2**30:.2f} GiB interleaved tier)")
+
+    rng = np.random.default_rng(17)
+    targets = rng.integers(1, n_docs + 1, MODEL_BATCH, dtype=np.uint32)
+    th = doc_hashes(targets)
+    queries = [make_query(rng, th[i]) for i in range(MODEL_BATCH)]
+    qs = np.zeros((MODEL_BATCH, params.query_len), np.uint32)
+    lens = np.array([len(q) for q in queries], np.int32)
+    for i, q in enumerate(queries):
+        qs[i, : len(q)] = q
+    opts = dict(limit=QUERY_OPTS["limit"], min_score=QUERY_OPTS["min_score"], score_pct=QUERY_OPTS["score_pct"])
+    model(table, qs, lens, **opts)  # first use of this shape
+    torch.cuda.synchronize()
+    for k in bl.LAUNCHES:
+        bl.LAUNCHES[k] = 0
+
+    def forward():
+        t0 = time.perf_counter()
+        out = model(table, qs, lens, **opts)
+        count = out["count"].cpu().numpy()
+        stats["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        return out, count
+
+    (out, count), stats["forward_spans_ms"], kernels = profiled(forward)
+    stats["launches"] = dict(bl.LAUNCHES)
+    stats["traced_kernels"] = sorted(k for k in kernels if "block_count" in k)
+    check(stats["traced_kernels"], f"the profiler trace of forward holds no block_count kernel: {sorted(kernels)[:8]}")
+    ids_out, scores = out["ids"].cpu().numpy(), out["scores"].cpu().numpy()
+    for i, q in enumerate(queries):
+        got = list(zip(ids_out[i, : count[i]].tolist(), scores[i, : count[i]].tolist()))
+        want = oracle_search([base_seg], q, limit=opts["limit"], min_score=opts["min_score"], pct=opts["score_pct"])
+        check(got == want, f"model forward, query {i}: {got[:3]} != oracle {want[:3]}")
+    for k in ("block_count", "block_count_emit"):
+        check(stats["launches"][k] > 0, f"{k} never launched by the model's forward")
+    log(f"phase2b: forward of B={MODEL_BATCH} in {stats['forward_ms']:.3f} ms (host clock, under the profiler; "
+        f"card time, ms: {json.dumps({k: round(v, 3) for k, v in stats['forward_spans_ms'].items()})}); "
+        f"every answer equals the oracle; launches {stats['launches']}; traced kernels {stats['traced_kernels']}")
+    del table, out
+    torch.cuda.empty_cache()
+
+    forward, args = entry()
+    res = forward(*args)
+    check(args[2].device.type == "cuda" and int(res["count"]) >= 1, f"entry() forward: {res}")
+    stats["entry_top"] = [int(res["ids"][0]), int(res["scores"][0])]
+    log(f"phase2b: entry() forward on the card: top result {stats['entry_top']}")
+    return stats
+
+
 # ---------------------------------------------------------------- phase 3
 
 
 def phase3_cli():
     import requests
 
+    import socket
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with socket.socket() as probe:  # --legacy-port takes a port number (0 = off)
+        probe.bind(("127.0.0.1", 0))
+        legacy_port = probe.getsockname()[1]
     proc = subprocess.Popen(
-        [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--dir", tmp, "--port", "0", "--search-port", "-1"],
+        [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--dir", tmp, "--port", "0", "--search-port", "-1",
+         "--legacy-port", str(legacy_port)],
         cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
     )
     # A thread reads the announcements: both lines can arrive in one read,
@@ -516,11 +752,26 @@ def phase3_cli():
             r = requests.post(f"{url}/cli/_search", json={"query": [22, 33, 44, 55], "timeout": 10_000}, timeout=60)
             check(r.status_code == 200 and r.json()["results"] == [{"id": 9, "score": 3}],
                   f"CLI search on its {label} port: {r.status_code} {r.text}")
+
+        # The legacy line protocol writes to and searches the fixed "main"
+        # index; its answer must be the HTTP search's.
+        with socket.create_connection(("127.0.0.1", legacy_port), timeout=60) as sock:
+            f = sock.makefile("rwb")
+            replies = []
+            for line in ("begin", "insert 10 11,22,33,44", "insert 12 22,33,-1", "commit", "search 22,33,44,55,-1"):
+                f.write(line.encode() + b"\r\n")
+                f.flush()
+                replies.append(f.readline().decode())
+        r = requests.post(f"{base}/main/_search", json={"query": [22, 33, 44, 55, 0xFFFFFFFF], "limit": 500, "min_score": 1}, timeout=60)
+        http = "OK " + " ".join(f"{x['id']}:{x['score']}" for x in r.json()["results"]) + "\r\n"
+        check(replies[:4] == ["OK \r\n"] * 4 and replies[4] == http == "OK 10:3 12:3\r\n",
+              f"CLI legacy session {replies} against the HTTP search {http!r}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"CLI server exited {rc} on SIGTERM")
         log("phase3: CLI entry served PUT + a search on its HTTP port and on its native search port, "
-            "and stopped on SIGTERM")
+            f"a legacy-protocol begin/insert/commit/search on its legacy port ({replies[4].strip()!r}, "
+            "equal to the HTTP search), and stopped on SIGTERM")
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -595,7 +846,7 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
-    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, N_DOCS
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, N_DOCS, sorted_corpus
     from acoustid_index_tpu_torch.utils.device import device
 
     dev = device()
@@ -606,9 +857,18 @@ def main() -> int:
     native_built = start_native_builds()
 
     kern = phase1_kernels(dev)
+    merge = phase1b_merge(dev)
     log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
-    serving = phase2_serving(N_DOCS, N_REQUESTS, native_built)
-    for path, launches in (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"])):
+    t0 = time.perf_counter()
+    base_seg = BaseSegment(*sorted_corpus(N_DOCS, dev), N_DOCS)
+    oracle_sort_s = time.perf_counter() - t0
+    serving = phase2_serving(N_DOCS, N_REQUESTS, native_built, base_seg)
+    serving["oracle_sort_s"] = oracle_sort_s
+    model = phase2b_model(dev, N_DOCS, base_seg)
+    del base_seg
+    paths = (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"]),
+             ("model forward", model["launches"]))
+    for path, launches in paths:
         check(launches["block_count"] > 0, f"K1 block_count never launched on the {path} path")
         check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
         for scan in ("block_count_scan", "block_count_emit_scan"):
@@ -619,12 +879,16 @@ def main() -> int:
     check(not ref_mods, f"modules of the JAX package were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
-    detail = {"phase1": kern, "phase2": serving, "total_s": total, "nvidia_smi": smi}
+    detail = {"phase1": kern, "phase1b": merge, "phase2": serving, "phase2b": model, "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(detail, f, default=str)
     log(f"total {total:.1f} s")
 
     def launches(name):
-        return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name]}
+        return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name],
+                "model_forward": model["launches"][name]}
 
     def of(kernel):
         return [r for r in kern if r["kernel"] == kernel]

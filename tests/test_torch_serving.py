@@ -159,7 +159,7 @@ def test_port_never_imports_jax():
     assert r.returncode == 0 and r.stdout.strip() == "OK", r.stderr
 
 
-@pytest.mark.parametrize("flag", ["--mesh-shards=2", "--profile-port=9999", "--legacy-port=6080"])
+@pytest.mark.parametrize("flag", ["--mesh-shards=2", "--profile-port=9999"])
 def test_main_refuses_unported_flags(flag, capsys):
     from acoustid_index_tpu_torch.main import main
 
