@@ -369,6 +369,115 @@ def phase1_cases(dev, g, designs: bool = False):
     ]
 
 
+# ---- K3-K5, the probes' kernels (ops/probe_lookup.py) ----
+#
+# At the probes' own shapes (acoustid_index_tpu_torch/probes.py builds the
+# tables): L = 32,768 lookups over 2^28-entry (1 GiB) and 2^27-entry
+# interleaved (1 GiB) tables whose hashes are the posting index, as the
+# probes' arange tables.  chip_smoke.py phase 1c runs these cases;
+# `python -m acoustid_index_tpu_torch.probes` runs them beside the probe
+# sites' own cases.
+
+PROBE_L = 32_768
+
+
+def probe_queries(hash_of, nblk: int, g, dev, lo: int = 1, L: int = PROBE_L):
+    """(blk int32, q int64 u32 values) of one probe input set: blocks
+    uniform in [lo, nblk - 1); per eight lookups, four hit their block at a
+    random position and one at one of its last four, three are uniform u32
+    (over the arange tables: past the block's end).  `hash_of(idx)` is the
+    hash of posting idx."""
+    import torch
+
+    from .ops.layout import BLOCK
+
+    blk = torch.randint(lo, nblk - 1, (L,), generator=g, device=dev)
+    pos = torch.randint(0, BLOCK, (L,), generator=g, device=dev)
+    kind = torch.arange(L, device=dev) % 8
+    pos = torch.where(kind == 1, BLOCK - 1 - (pos & 3), pos)
+    q = hash_of(blk * BLOCK + pos)
+    miss = torch.randint(0, 1 << 32, (L,), generator=g, device=dev, dtype=torch.int64)
+    return blk.to(torch.int32), torch.where(kind >= 5, miss, q)
+
+
+def pair_case(shape, note, stride, sets):
+    """K3's window at one shape; each set carries "blk1".  No yardstick: no
+    single PyTorch call computes the window."""
+    from .ops import probe_lookup as pl
+
+    def run(fn):
+        return lambda s: fn(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2], stride)
+
+    case = _case("block_count_pair", shape, note, stride, sets, {"new": run(pl.block_count_pair)}, run(pl.block_count_pair_plain))
+    case["variant"] = "full"
+    return case
+
+
+def emit_docids_case(shape, note, sets, E, R, mode="onehot"):
+    """K4 at one shape: no yardstick (no single PyTorch call computes it)."""
+    from .ops import probe_lookup as pl
+
+    case = _case("block_count_emit_docids", shape, note, 2, sets,
+                 {"new": lambda s: pl.block_count_emit_docids(*s["inputs"], E, R, mode)},
+                 lambda s: pl.block_count_emit_docids_plain(*s["inputs"], E, R, mode))
+    case.update(E=E, R=R, mode=mode)
+    return case
+
+
+def staged_case(shape, note, sets, configs):
+    """K5 at one shape, each (G, NBUF) of `configs` a variant (the first is
+    the headline), beside K1's scan (per-thread 16-byte loads of the same
+    4 KB), K1's search and the searchsorted yardstick on sorted tables,
+    each of those three with the composite's packing (K5 writes it from
+    its own body)."""
+    from .ops import block_lookup as bl
+    from .ops import probe_lookup as pl
+
+    comp = pl.composite
+    variants = {f"G{G}xNBUF{N}": (lambda s, G=G, N=N: pl.block_count_staged(*s["inputs"], G, N)) for G, N in configs}
+    variants["scan"] = lambda s: comp(*bl.block_count_scan(*s["inputs"], 1))
+    if sets[0]["sorted64"] is not None:
+        variants["search"] = lambda s: comp(*bl.block_count(*s["inputs"], 1))
+        variants["searchsorted"] = lambda s: comp(*searchsorted_count(s["sorted64"], s["inputs"][1], s["q64"]))
+    case = _case("block_count_staged", shape, note, 1, sets, variants, lambda s: pl.block_count_staged_plain(*s["inputs"]))
+    case["headline"] = next(iter(variants))
+    return case
+
+
+def probe_kernel_cases(t, g, n_sets: int = QUERY_SETS):
+    """K3, K4 and K5 at one probe shape each, QUERY_SETS input sets:
+    K3 (window, stride 1 and 2) over _pairkernel's callers' 2^28 table,
+    half the lookups with blk1 = blk0 + 1; K4 (E = 2 and 4, R = 1024 and
+    128) over _probe_fused's 2^27 interleaved tables; K5 ((G, NBUF) = (8,
+    4) and (16, 2)) over _probe_dma2's 2^28 table.  `t` is probes.py's
+    build_tables()."""
+    import torch
+
+    def ident(idx):
+        return idx
+
+    cases = []
+    for key, stride, label in (("t28", 1, "2^28 hashes (1 GiB)"), ("i28", 2, "2^28 interleaved (2 GiB)")):
+        table = t[key]
+        nblk = table.shape[0] // (stride * 1024)
+        sets = []
+        for _ in range(n_sets):
+            blk0, q = probe_queries(ident, nblk, g, table.device)
+            s = _set(table, blk0, q, t["sorted64"] if stride == 1 else None)
+            s["blk1"] = torch.where(torch.arange(blk0.shape[0], device=table.device) % 2 == 0, blk0 + 1, 0).to(torch.int32)
+            sets.append(s)
+        cases.append(pair_case("probe-window", f"{label}, half the windows enabled", stride, sets))
+    for key, R in (("rm27", 1024), ("lm27", 128)):
+        table = t[key]
+        sets = [_set(table, *probe_queries(ident, table.shape[0] // 2048, g, table.device)) for _ in range(n_sets)]
+        for E in (2, 4):
+            cases.append(emit_docids_case(f"probe-E{E}-R{R}", f"2^27 interleaved (1 GiB), 3/8 of lookups past the block end", sets, E, R))
+    table = t["t28"]
+    sets = [_set(table, *probe_queries(ident, table.shape[0] // 1024, g, table.device), t["sorted64"]) for _ in range(n_sets)]
+    cases.append(staged_case("probe", "2^28 hashes (1 GiB)", sets, ((8, 4), (16, 2))))
+    return cases
+
+
 def turn_ms(fn, sets, n: int, start: int = 0) -> float:
     """ms per call of n back-to-back calls fn(sets[(start + i) % len(sets)]),
     CUDA events.  The card first sleeps while the host queues the n calls,
@@ -386,72 +495,143 @@ def turn_ms(fn, sets, n: int, start: int = 0) -> float:
     return start_ev.elapsed_time(end_ev) / n
 
 
-def kernel_bound(case, s, outs):
-    """(bound ms, "bytes" or "operations", needed bytes, scan bytes,
-    compares) of one call on input set `s`: each byte the call needs,
-    read once, each output written once, at the card's peaks.
-
-    K1/K2 over sorted blocks need, per lookup, the 32-byte sectors that
-    hold the entries on each side of its two bounds (lt - 1 and lt, ub - 1
-    and ub, inside the block), each sector counted once per call; K2 also
-    the distinct docid rows it copies and the 1 KB it writes per lookup.
-    K1m needs the entries inside its spans.  "Scan bytes" is what the
-    scanning designs read: every distinct block's 1024 hashes."""
+def _bound_sectors(b, at, words_per_block: int):
+    """Distinct 32-byte sectors holding block-relative words `at` (one
+    row per lookup) of blocks `b`."""
     import torch
 
+    return int(torch.unique(((b[:, None] * words_per_block + at) * 4 // 32).reshape(-1)).numel())
+
+
+def kernel_bound(case, s):
+    """(needed bytes, scan bytes, compares) of one call on input set `s`:
+    each byte the call needs, read once, each output written once.
+
+    K1/K2 and K3 over sorted blocks need, per lookup, the 32-byte sectors
+    that hold the entries on each side of its two bounds (lt - 1 and lt, ub
+    - 1 and ub, inside the block), each sector counted once per call: K3 in
+    each enabled block (its "noreduce" variant the sector of the block's
+    first hash, "empty" none); K2 also the distinct docid rows it copies
+    and the 1 KB it writes per lookup; K4 also the sectors of the docids it
+    reads and 4 * (1 + E) B out.  K1m needs the entries inside its spans,
+    K5 every entry of each distinct block (it counts the whole block).
+    K1, K1m and K2 write lt and eq (8 B per lookup), K3 and K5 the
+    composite (4 B).
+    "Scan bytes" is what a scanning design reads: every distinct block's
+    1024 hashes.  The counts come from the plain versions on `s`."""
+    import torch
+
+    from .ops import block_lookup as bl
+    from .ops import probe_lookup as pl
     from .ops.layout import BLOCK
 
-    table, blk, _ = s["inputs"]
+    kernel = case["kernel"]
+    table, blk, q = s["inputs"]
     stride = case["stride"]
     nblk = table.shape[0] // (stride * BLOCK)
     L = blk.shape[0]
     b = blk.to(torch.int64).clamp(0, nblk - 1)
-    lt, eq = outs[0].to(torch.int64), outs[1].to(torch.int64)
     io = L * (4 + 4) + L * 8  # blk, q; lt, eq
     scan = int(torch.unique(b).numel()) * BLOCK * 4 + io
-    if case["kernel"] == "block_count_masked":
+    words = stride * BLOCK
+
+    def at_bounds(lt, eq):  # the hash positions on each side of both bounds
+        lt, eq = lt.to(torch.int64), eq.to(torch.int64)
+        return torch.stack([lt - 1, lt, lt + eq - 1, lt + eq], 1).clamp(0, BLOCK - 1)
+
+    if kernel == "block_count_masked":
         lo_b, hi_b = s["spans"]
         e = b[:, None] * BLOCK + torch.arange(BLOCK, device=blk.device)
         need = torch.zeros(nblk * BLOCK, dtype=torch.bool, device=blk.device)
         need[e[(e >= lo_b[:, None]) & (e < hi_b[:, None])]] = True
-        needed = int(need.sum()) * 4 + io + L * 8  # + lo_b, hi_b
-        ops = L * BLOCK * 4  # two bound compares and two value compares per entry
-    else:
-        at = torch.cat([lt - 1, lt, lt + eq - 1, lt + eq]).clamp(0, BLOCK - 1)
-        sectors = (b.repeat(4) * stride * BLOCK + at) * 4 // 32
-        needed = int(torch.unique(sectors).numel()) * 32 + io
-        ops = L * 2 * 11  # a binary search's compares, both bounds
-        if case["kernel"] == "block_count_emit":
-            r = torch.clamp(lt >> 7, max=7)
-            rows = int(torch.unique(torch.cat([b * 8 + r, b * 8 + torch.clamp(r + 1, max=7)])).numel())
-            needed += rows * 128 * 4 + L * 256 * 4
-            scan += rows * 128 * 4 + L * 256 * 4
-    return {"needed_bytes": needed, "scan_bytes": scan, "compares": ops}
+        return {"needed_bytes": int(need.sum()) * 4 + io + L * 8, "scan_bytes": scan, "compares": L * BLOCK * 4}
+    if kernel == "block_count_staged":
+        scan -= L * 4  # one 4-byte composite out
+        return {"needed_bytes": scan, "scan_bytes": scan, "compares": L * BLOCK * 2}
+    if kernel == "block_count_pair":
+        io -= L * 4
+        scan -= L * 4
+        variant, blk1 = case["variant"], s["blk1"].to(torch.int64)
+        if variant == "empty":
+            return {"needed_bytes": L * 4, "scan_bytes": L * 4, "compares": 0}
+        if variant == "noreduce":
+            return {"needed_bytes": int(torch.unique(b * words * 4 // 32).numel()) * 32 + io, "scan_bytes": scan, "compares": L}
+        sectors = [(b, at_bounds(*bl.block_count_plain(table, blk, q, stride)))]
+        if variant == "full":
+            on = blk1 > 0
+            b1 = blk1[on].clamp(0, nblk - 1)
+            sectors.append((b1, at_bounds(*bl.block_count_plain(table, b1, q[on], stride))))
+            io += L * 4
+            scan += int(torch.unique(b1).numel()) * BLOCK * 4
+        needed = sum(_bound_sectors(bb, at, words) for bb, at in sectors) * 32 + io
+        return {"needed_bytes": needed, "scan_bytes": scan, "compares": sum(bb.shape[0] for bb, _ in sectors) * 2 * 11}
+    if kernel == "block_count_emit_docids":
+        E, R, mode = case["E"], case["R"], case["mode"]
+        comp, _ = pl.block_count_emit_docids_plain(table, blk, q, 0, R)
+        lt, eq = pl.counts(comp)
+        lt = lt.to(torch.int64)
+        at = at_bounds(lt, eq)
+        at = (at // R) * 2 * R + at % R  # the hash words of layout R
+        p = lt[:, None] + torch.arange(E, device=blk.device)
+        if mode == "slice":
+            p = torch.clamp(p >> 7, max=7) * 128 + (p & 127)
+        else:  # words past the block are not read
+            p = torch.where(p < BLOCK, p, lt[:, None].clamp(max=BLOCK - 1))
+        at = torch.cat([at, (p // R) * 2 * R + R + p % R], 1)
+        needed = _bound_sectors(b, at, words) * 32 + L * 8 + L * 4 * (1 + E)
+        return {"needed_bytes": needed, "scan_bytes": scan - io + L * 8 + L * 4 * (1 + E), "compares": L * 2 * 11}
+    lt, eq = bl.block_count_plain(table, blk, q, stride)
+    needed = _bound_sectors(b, at_bounds(lt, eq), words) * 32 + io
+    if kernel == "block_count_emit":
+        r = torch.clamp(lt.to(torch.int64) >> 7, max=7)
+        rows = int(torch.unique(torch.cat([b * 8 + r, b * 8 + torch.clamp(r + 1, max=7)])).numel())
+        needed += rows * 128 * 4 + L * 256 * 4
+        scan += rows * 128 * 4 + L * 256 * 4
+    return {"needed_bytes": needed, "scan_bytes": scan, "compares": L * 2 * 11}
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_case(case):
+    """Check every variant of `case` bit for bit against the plain version
+    on every input set (AssertionError on the first difference); returns
+    the case's record with the mean bound of one call over the sets."""
+    import torch
+
+    err, need = 0, []
+    for s in case["sets"]:
+        want = _tuple(case["plain"](s))
+        for name, fn in case["variants"].items():
+            got = _tuple(fn(s))
+            if got[0].is_cuda:
+                torch.cuda.synchronize()
+            e = max(int((a.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0 for a, w in zip(got, want))
+            if e or len(got) != len(want) or not all(torch.equal(a, w) for a, w in zip(got, want)):
+                raise AssertionError(f"{case['kernel']}/{case['shape']}/{name} differs from the plain version (max abs err {e})")
+            err = max(err, e)
+        need.append(kernel_bound(case, s))
+    rec = {k: case[k] for k in ("kernel", "shape", "note", "stride", "L", "table_entries", "span_counts") if k in case}
+    rec["sets"], rec["max_abs_err"] = len(case["sets"]), err
+    for key in ("needed_bytes", "scan_bytes", "compares"):
+        rec[key] = sum(n[key] for n in need) / len(need)
+    t_bytes, t_ops = rec["needed_bytes"] / HBM_BYTES_PER_S * 1e3, rec["compares"] / CUDA_CORE_OPS_PER_S * 1e3
+    rec["bound_ms"], rec["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rec["scan_bound_ms"] = rec["scan_bytes"] / HBM_BYTES_PER_S * 1e3
+    return rec
 
 
 def run_case(case, log=print):
-    """Check every variant of `case` bit for bit against the plain version
-    on every input set, then time them in turns (v1, v2, ..., v2, v1) over
-    ROUNDS rounds of TURN_LAUNCHES launches, cold (cycling through the
+    """check_case, then time every variant in turns (v1, v2, ..., v2, v1)
+    over ROUNDS rounds of TURN_LAUNCHES launches, cold (cycling through the
     sets) and warm (set 0 again and again), with the SM clock and power
     draw read around each round.  Returns the case's record; a variant's
     `median_ms` is its cold time where the case has several sets."""
     import statistics
 
-    import torch
-
+    rec = check_case(case)
     sets = case["sets"]
-    err, need = 0, []
-    for s in sets:
-        want = case["plain"](s)
-        for name, fn in case["variants"].items():
-            got = fn(s)
-            torch.cuda.synchronize()
-            e = max(int((a.to(torch.int64) - w.to(torch.int64)).abs().max()) if w.numel() else 0 for a, w in zip(got, want))
-            if e or not all(torch.equal(a, w) for a, w in zip(got, want)):
-                raise AssertionError(f"{case['kernel']}/{case['shape']}/{name} differs from the plain version (max abs err {e})")
-            err = max(err, e)
-        need.append(kernel_bound(case, s, want))
     names = list(case["variants"])
     order = names + names[::-1]
     modes = {"cold": sets, "warm": sets[:1]} if len(sets) > 1 else {"warm": sets}
@@ -469,28 +649,22 @@ def run_case(case, log=print):
         return {"median_ms": statistics.median(v), "min_ms": min(v), "max_ms": max(v), "samples_ms": v}
 
     timed = next(iter(modes))
-    rec = {k: case[k] for k in ("kernel", "shape", "note", "stride", "L", "table_entries", "span_counts") if k in case}
-    rec["sets"], rec["timed"], rec["max_abs_err"] = len(sets), timed, err
-    rec["variants"] = {}
+    rec["timed"], rec["variants"] = timed, {}
     for k in names:
         rec["variants"][k] = stats(samples[(k, timed)])
         if timed == "cold":
             rec["variants"][k]["warm"] = stats(samples[(k, "warm")])
     rec["plain_ms"] = turn_ms(case["plain"], sets[:1], 5)
     rec["smi_rounds"] = smi_rounds
-    # The bound of one call, averaged over the sets the cold turns cycle through.
-    for key in ("needed_bytes", "scan_bytes", "compares"):
-        rec[key] = sum(n[key] for n in need) / len(need)
-    t_bytes, t_ops = rec["needed_bytes"] / HBM_BYTES_PER_S * 1e3, rec["compares"] / CUDA_CORE_OPS_PER_S * 1e3
-    rec["bound_ms"], rec["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    rec["scan_bound_ms"] = rec["scan_bytes"] / HBM_BYTES_PER_S * 1e3
 
     def show(k):
         v = rec["variants"][k]
         warm = f", warm {v['warm']['median_ms']:.4f}" if "warm" in v else ""
         return f"{k} {v['median_ms']:.4f} ({v['min_ms']:.4f}-{v['max_ms']:.4f}){warm}"
 
-    new = rec["variants"]["new"]["median_ms"]
+    head = case.get("headline", "new")
+    rec["headline"] = head
+    new = rec["variants"][head]["median_ms"]
     log(f"kernels: {case['kernel']} ({case['shape']}: {case['note']}, stride {case['stride']}) L={case['L']} "
         f"bit-equal to plain on {len(sets)} sets; median ms over {ROUNDS}x2 turns of {TURN_LAUNCHES}, {timed}: "
         f"{'; '.join(show(k) for k in names)}; plain {rec['plain_ms']:.4f}; bound {rec['bound_ms']:.5f} ms by "

@@ -7,9 +7,11 @@ stale build.  No PyTorch headers are involved, so a build takes seconds.
 Nothing here runs at import time: the CPU test suite imports every module
 of the port on a machine with no nvcc and no card.
 
-Two libraries: "kernels" (csrc/block_lookup.cu), the kernels the port
+Three libraries: "kernels" (csrc/block_lookup.cu), the kernels the port
 runs; "designs" (csrc/block_lookup_designs.cu), the search designs that
-K1 and K2 did not take, which only measure.py loads to time them.
+K1 and K2 did not take, which only measure.py loads to time them;
+"probes" (csrc/probe_lookup.cu), K3-K5, the kernels of the probes'
+contracts that K1 and K2 do not compute (ops/probe_lookup.py).
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ _P = ctypes.c_void_p
 _COUNT = [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]
 _EMIT = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
 _MASKED = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P]
+_I, _LL = ctypes.c_int, ctypes.c_longlong
+_PAIR = [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]
+_EMIT_DOCIDS = [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]
+_STAGED = [_P, _P, _P, _P, _LL, _LL, _I, _I, _P]
 
 # library -> (sources, {C entry: ctypes argument types})
 LIBRARIES = {
@@ -48,9 +54,14 @@ LIBRARIES = {
         "aitpu_design_emit_group8": _EMIT,
         "aitpu_design_emit_warp32": _EMIT,
     }),
+    "probes": (("probe_lookup.cu",), {
+        "aitpu_block_count_pair": _PAIR,
+        "aitpu_block_count_emit_docids": _EMIT_DOCIDS,
+        "aitpu_block_count_staged": _STAGED,
+    }),
 }
 
-_lock = threading.Lock()
+_locks = {name: threading.Lock() for name in LIBRARIES}  # one per library: builds may run at once
 _libs: dict = {}
 build_seconds: dict = {}  # library -> wall time of this process's nvcc run (absent: not built here)
 
@@ -76,7 +87,7 @@ def _so_path(name: str) -> str:
 def library(name: str = "kernels") -> ctypes.CDLL:
     """The loaded library `name`, building it first if needed.  Raises on
     any build or load failure -- there is no fallback."""
-    with _lock:
+    with _locks[name]:
         if name in _libs:
             return _libs[name]
         sources, entries = LIBRARIES[name]

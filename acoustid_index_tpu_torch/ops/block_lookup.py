@@ -53,14 +53,19 @@ LAUNCHES = {
     "block_count_emit": 0,
     "block_count_scan": 0,
     "block_count_emit_scan": 0,
+    # K3-K5 (ops/probe_lookup.py, csrc/probe_lookup.cu): the probes' kernels
+    "block_count_pair": 0,
+    "block_count_emit_docids": 0,
+    "block_count_staged": 0,
 }
 _launches_lock = threading.Lock()  # several native-front pumps launch at once
 
-# Test hook: when true, K1's and K2's wrappers check on the CPU that every
-# block they look into is non-decreasing as u32 -- the precondition of the
-# kernels' search, which the card does not check and the plain versions do
-# not need -- and raise if one is not.  The tests that drive the serving
-# path set it, so a caller that hands K1/K2 an unsorted table fails there.
+# Test hook: when true, the wrappers of the searching kernels (K1, K2 here,
+# K3, K4 in probe_lookup.py) check on the CPU that every block they look
+# into is non-decreasing as u32 -- the precondition of the kernels' search,
+# which the card does not check and the plain versions do not need -- and
+# raise if one is not.  The tests that drive the serving path set it, so a
+# caller that hands K1/K2 an unsorted table fails there.
 CHECK_SORTED = False
 
 # Lookups per chunk of the plain versions: (chunk, 1024) widened to int64
@@ -88,11 +93,12 @@ def _cuda_args(table, blk, q):
     return blk, q
 
 
-def _check_sorted(name, table, blk, stride):
-    """Raise unless every block that `blk` names is non-decreasing as u32."""
+def _check_sorted(name, table, blk, stride, R: int = BLOCK):
+    """Raise unless every block that `blk` names is non-decreasing as u32
+    (at stride 2 its hashes: the first of each pair of R-word runs)."""
     nblk = table.shape[0] // (stride * BLOCK)
     b = torch.unique(blk.to(torch.int64).clamp(0, nblk - 1))
-    h = u32(table.view(nblk, stride * BLOCK)[b, :BLOCK])
+    h = u32(table.view(nblk, BLOCK // R, stride, R)[b, :, 0].reshape(-1, BLOCK))
     bad = (h[:, 1:] < h[:, :-1]).any(1)
     if bool(bad.any()):
         raise AssertionError(

@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
      the host libraries (csrc/*.cc: codecs, the native search front, the
-     load generator) start building with g++ in the background.
+     load generator) start building with g++ in the background, and the two
+     kernel libraries (csrc/block_lookup.cu, csrc/probe_lookup.cu) with
+     nvcc, one process each, all at once.
   1. kernels: build every kernel of acoustid_index_tpu_torch/csrc (K1
      block_count, K1m block_count_masked, K2 block_count_emit, and K1's and
      K2's first, scanning designs block_count_scan / block_count_emit_scan)
@@ -31,6 +33,18 @@ Phases, each fatal on failure:
      0xFFFFFFFF) merged on the card must equal the host merger's Segment
      in every field, bit for bit; then both merge each run in turns, 3
      rounds, and the size from which the card is faster is logged.
+  1c. the probes (acoustid_index_tpu_torch/probes.py, the counterpart of
+     the reference's probes/): with every launch counter at 0, `python -m
+     acoustid_index_tpu_torch.probes --check-only` in this process runs the
+     probes' own parity checks and every variant of the sixteen sites'
+     functions once at the probes' shapes (2^26-2^28-entry tables, 32,768
+     lookups), each bit-equal to its plain version; K3 block_count_pair, K4
+     block_count_emit_docids and K5 block_count_staged (csrc/probe_lookup.cu)
+     must each have launched.  Then each alone at one probe shape
+     (measure.probe_kernel_cases): K3's window at strides 1 and 2, K4 at E =
+     2 and 4, R = 1024 and 128, K5 at (G, NBUF) = (8, 4) and (16, 2) beside
+     K1's scan, search and torch.searchsorted; bit-equal to the plain version
+     on every input set, then timed cold and warm as phase 1 times.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
      to disk through merge_segments_auto (it must take the device merge,
@@ -63,7 +77,8 @@ Phases, each fatal on failure:
      HTTP and native ports, a begin/insert/commit/search session on its
      legacy port whose answer equals the HTTP search, and stops on SIGTERM.
 
-The run fails if jax or any module of acoustid_index_tpu was imported.
+The run fails if jax, any module of acoustid_index_tpu or of probes/ was
+imported.
 The last three lines of stdout are the card's nvidia-smi line, a JSON
 object of per-kernel results, and {"ok": true, "device": {...}}; every
 phase's figures also go to chiprun_out/chip_smoke.json.
@@ -71,6 +86,8 @@ phase's figures also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import queue
@@ -156,8 +173,8 @@ def phase1_kernels(dev):
 
     t0 = time.perf_counter()
     _build.library()
-    log(f"phase1: kernels built in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {_build.build_seconds.get('kernels', 'cached')} s)")
+    log(f"phase1: kernels ready after {time.perf_counter() - t0:.3f} s more "
+        f"(nvcc {_build.build_seconds.get('kernels', 'cached')} s, started in phase 0)")
 
     # The serving tier's shape: 262,144 interleaved blocks (2 GiB) holding
     # the 10M-doc corpus's 240M postings, then padding; a B=256 batch of
@@ -276,6 +293,48 @@ def phase1b_merge(dev):
     log(f"phase1b: the device merge is faster from {out['crossover']} postings on "
         f"(sizes {list(MERGE_SIZES)}; DEVICE_MERGE_MIN_POSTINGS routes from 1,000,000)")
     return out
+
+
+# ---------------------------------------------------------------- phase 1c
+
+
+def phase1c_probes(dev):
+    """The probes path with the counters from 0, then K3-K5 alone at the
+    probes' shapes; returns (launches on the path, kernel records)."""
+    import torch
+
+    from acoustid_index_tpu_torch import measure as m
+    from acoustid_index_tpu_torch import probes
+    from acoustid_index_tpu_torch.ops import _build
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+
+    t_phase = t0 = time.perf_counter()
+    _build.library("probes")
+    log(f"phase1c: probe kernels ready after {time.perf_counter() - t0:.3f} s more "
+        f"(nvcc {_build.build_seconds.get('probes', 'cached')} s, started in phase 0)")
+    for k in bl.LAUNCHES:
+        bl.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:  # its lines, prefixed, below
+        rc = probes.main(["--check-only", "--seed", "5", "--out", os.path.join(HERE, "chiprun_out", "probes_check.json")])
+    torch.cuda.synchronize()
+    launches = dict(bl.LAUNCHES)
+    for line in out.getvalue().splitlines():
+        log(f"phase1c: {line}")
+    check(rc == 0, f"the probes path failed a check (exit {rc}): chiprun_out/probes_check.json")
+    log(f"phase1c: probes --check-only in {time.perf_counter() - t0:.1f} s: every parity check and every site "
+        f"variant bit-equal to its plain version; launches {launches}")
+    for k in ("block_count", "block_count_emit", "block_count_pair", "block_count_emit_docids", "block_count_staged"):
+        check(launches[k] > 0, f"{k} never launched on the probes path")
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    t = probes.build_tables(dev, g)
+    results = [m.run_case(c, log) for c in m.probe_kernel_cases(t, g)]
+    del t
+    torch.cuda.empty_cache()
+    log(f"phase1c: done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, results
 
 
 # ---------------------------------------------------------------- phase 2
@@ -807,7 +866,18 @@ def start_native_builds():
     return wait
 
 
-def kernel_entry(name, variant, replaces, also, records, main_shape, launches):
+def start_kernel_builds():
+    """Start nvcc on every kernel library the run needs, one process each,
+    all at once, in the background (ops/_build.py: a caller of a library
+    waits for its build)."""
+    from acoustid_index_tpu_torch.ops import _build
+
+    for name in ("kernels", "probes"):
+        threading.Thread(target=_build.library, args=(name,), daemon=True).start()
+
+
+def kernel_entry(name, variant, replaces, also, records, main_shape, launches,
+                 source="acoustid_index_tpu_torch/csrc/block_lookup.cu"):
     """One kernel's entry of the final `kernels` line: `variant` ("new" or
     "scan") of the phase-1 records of one kernel contract.  The top-level
     times are those at `main_shape`, the shape of its heaviest main-path
@@ -825,7 +895,7 @@ def kernel_entry(name, variant, replaces, also, records, main_shape, launches):
     shapes = {f"{r['shape']}-stride{r['stride']}": summary(r) for r in records}
     top = shapes[main_shape]
     return {
-        "name": name, "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/block_lookup.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "also_replaces": also,
         "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in records), "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -855,9 +925,12 @@ def main() -> int:
     log(f"phase0: nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     native_built = start_native_builds()
+    start_kernel_builds()
 
     kern = phase1_kernels(dev)
     merge = phase1b_merge(dev)
+    probe_launches, probe_kern = phase1c_probes(dev)
+    kern += probe_kern
     log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
     t0 = time.perf_counter()
     base_seg = BaseSegment(*sorted_corpus(N_DOCS, dev), N_DOCS)
@@ -875,11 +948,12 @@ def main() -> int:
             check(launches[scan] == 0, f"{scan} launched {launches[scan]} times on the {path} path")
     phase3_cli()
     check("jax" not in sys.modules, "jax was imported")
-    ref_mods = sorted(m for m in sys.modules if m == "acoustid_index_tpu" or m.startswith("acoustid_index_tpu."))
-    check(not ref_mods, f"modules of the JAX package were imported: {ref_mods}")
+    ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("acoustid_index_tpu", "probes"))
+    check(not ref_mods, f"modules of the JAX package or of probes/ were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
-    detail = {"phase1": kern, "phase1b": merge, "phase2": serving, "phase2b": model, "total_s": total, "nvidia_smi": smi}
+    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase2": serving, "phase2b": model,
+              "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -888,28 +962,42 @@ def main() -> int:
 
     def launches(name):
         return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name],
-                "model_forward": model["launches"][name]}
+                "model_forward": model["launches"][name], "probes": probe_launches[name]}
 
     def of(kernel):
         return [r for r in kern if r["kernel"] == kernel]
 
     k1_also = ["acoustid_index_tpu/ops/pallas_lookup.py:172", "acoustid_index_tpu/ops/pallas_lookup.py:484"]
+    k1_probes = ["probes/_probe_kernelvariants.py:78", "probes/_probe_kernelvariants.py:131", "probes/_probe_fused.py:66",
+                 "probes/_probe_fused2.py:98"]  # the last at E = 0, "plain" and "rm"
+    k2_also = ["acoustid_index_tpu/ops/pallas_lookup.py:86"]
+    probe_cu = "acoustid_index_tpu_torch/csrc/probe_lookup.cu"
     kernels = [
-        kernel_entry("block_count", "new", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also,
+        kernel_entry("block_count", "new", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also + k1_probes,
                      of("block_count"), "a-stride1", launches("block_count")),
         # Masked mode has no caller on either path (nor in the JAX package):
         # its launches there are 0 by design; phase 1 checks it.
         kernel_entry("block_count_masked", "new", "acoustid_index_tpu/ops/pallas_lookup.py:496", [],
                      of("block_count_masked"), "d-stride1", launches("block_count_masked")),
         kernel_entry("block_count_emit", "new", "acoustid_index_tpu/ops/pallas_lookup.py:347",
-                     ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
+                     k2_also + ["probes/_probe_fused3.py:79", "probes/_probe_dma2.py:321"],
                      of("block_count_emit"), "c-stride2", launches("block_count_emit")),
-        # K1's and K2's first designs, timed beside them; no main-path caller.
-        kernel_entry("block_count_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also,
+        # K1's and K2's first designs, timed beside them; no main-path caller
+        # (K5's cases on the probes path time K1's scan beside it).
+        kernel_entry("block_count_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also + k1_probes,
                      of("block_count"), "a-stride1", launches("block_count_scan")),
-        kernel_entry("block_count_emit_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:347",
-                     ["acoustid_index_tpu/ops/pallas_lookup.py:86"],
+        kernel_entry("block_count_emit_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:347", k2_also,
                      of("block_count_emit"), "c-stride2", launches("block_count_emit_scan")),
+        # K3-K5: the probes' kernels, launched on the probes path (phase 1c).
+        kernel_entry("block_count_pair", "new", "probes/_pairkernel.py:93",
+                     ["probes/_probe_dma.py:73", "probes/_probe_smem.py:60", "probes/_probe_floor.py:63"],
+                     of("block_count_pair"), "probe-window-stride1", launches("block_count_pair"), probe_cu),
+        kernel_entry("block_count_emit_docids", "new", "probes/_probe_fused.py:115", ["probes/_probe_fused2.py:98"],
+                     of("block_count_emit_docids"), "probe-E2-R1024-stride2", launches("block_count_emit_docids"), probe_cu),
+        kernel_entry("block_count_staged", "G8xNBUF4", "probes/_probe_dma2.py:79",
+                     ["probes/_probe_dma2.py:149", "probes/_probe_dma2.py:215", "probes/_probe_ceiling.py:119",
+                      "probes/_probe_wavemm.py:108"],
+                     of("block_count_staged"), "probe-stride1", launches("block_count_staged"), probe_cu),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
