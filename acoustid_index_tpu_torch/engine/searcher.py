@@ -216,15 +216,21 @@ class Searcher:
         mem_view = tier_view_for_search(snapshot.mem_view)
         inp = torch.from_numpy(np.ascontiguousarray(packed_in).view(np.int32))
         if self._stream is None:
-            out = search_segments_batch_packed_io(params, file_view, mem_view, inp.to(self.device))
+            out = self._program(params, file_view, mem_view, inp.to(self.device))
             return out.cpu().numpy().view(np.uint32)
         with torch.cuda.stream(self._stream):
-            out = search_segments_batch_packed_io(params, file_view, mem_view, inp.to(self.device))
+            out = self._program(params, file_view, mem_view, inp.to(self.device))
             host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
         return host, done
+
+    @staticmethod
+    def _program(params: SearchParams, file_view, mem_view, inp):
+        """The batch program _launch queues: packed inputs in, packed
+        outputs out (parallel/serving.py swaps in the sharded one)."""
+        return search_segments_batch_packed_io(params, file_view, mem_view, inp)
 
     @staticmethod
     def _fetch(handle) -> np.ndarray:

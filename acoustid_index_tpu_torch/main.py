@@ -4,11 +4,13 @@ CLI flags mirror the reference's table (upstream fpindex's src/main.zig:40-65,
 README "Configuration"); unknown flags warn and continue.
 
 The port's copy of acoustid_index_tpu/main.py; its imports are the port's
-own modules.  It differs in the flags whose subsystems are not ported yet
-(--profile-port: torch has no counterpart of jax.profiler's live server;
---mesh-shards), which exit with an error instead of starting them, and in
-build_server()/stop_server(), split out of run_server() so that an
-in-process caller (chip_smoke.py) serves through the same entry as the CLI.
+own modules.  It differs in build_server()/stop_server(), split out of
+run_server() so that an in-process caller (chip_smoke.py) serves through
+the same entry as the CLI; in --mesh-shards N, whose N shards are slices
+of the one device (parallel/); and in --profile-port, a capture listener
+(utils/profiling.start_profiler_server) in place of jax.profiler's server:
+`GET /capture?ms=N` answers with a Chrome trace of the live process
+(-1 binds port 0 and prints `PROFILER <port>`).
 """
 
 from __future__ import annotations
@@ -45,18 +47,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinator-url", default=None, help="Replica mode: consume this changelog")
     p.add_argument("--peers", default=None, help="Comma-separated peer base URLs (snapshot donors)")
     p.add_argument("--bootstrap-timeout-ms", type=int, default=1_800_000, help="0 disables")
-    p.add_argument("--profile-port", type=int, default=0, help="XLA profiler gRPC port (0 = off)")
+    p.add_argument(
+        "--profile-port",
+        type=int,
+        default=0,
+        help="Profiler capture port: GET /capture?ms=N returns a Chrome trace (0 = off, -1 = auto-pick)",
+    )
     p.add_argument(
         "--mesh-shards",
         type=int,
         default=0,
-        help="Serve search hash-range-sharded over an N-device mesh (0 = single device)",
+        help="Serve search hash-range-sharded over N shards of the device (0 = single device)",
     )
     return p
-
-
-# Flags whose subsystems import jax in the reference and are not ported yet.
-NOT_PORTED = ("profile_port", "mesh_shards")
 
 
 def build_server(args):
@@ -65,13 +68,22 @@ def build_server(args):
     (server/native_front.py) starts serving search on that port at once
     (-1 binds port 0; its port is then front.port); with args.legacy_port,
     so does the legacy line protocol (server/legacy.py; read-only on a
-    replica).  Returns (server, mi, replicator, front, legacy), front and
-    legacy None without their ports; serve HTTP with
-    server.serve_background() and end with stop_server().  run_server()
-    is the CLI's loop around it; in-process callers call it directly."""
+    replica); with args.mesh_shards, every index searches through a
+    ShardedBatchingSearcher of that many shards (parallel/serving.py).
+    Returns (server, mi, replicator, front, legacy), front and legacy None
+    without their ports; serve HTTP with server.serve_background() and end
+    with stop_server().  run_server() is the CLI's loop around it;
+    in-process callers call it directly."""
     from .multi.multi_index import MultiIndex
     from .server.app import App
     from .server.http import HttpServer
+
+    searcher = None
+    if args.mesh_shards:
+        from .parallel.serving import ShardedBatchingSearcher
+
+        searcher = ShardedBatchingSearcher(n_shards=args.mesh_shards)
+        logging.info("search sharded over %d shards of %s", searcher.n_shards, searcher.device)
 
     mi = MultiIndex.open(
         args.dir,
@@ -79,6 +91,7 @@ def build_server(args):
         checkpoint_age=(args.checkpoint_age_ms / 1000.0) if args.checkpoint_age_ms else None,
         sync=args.coordinator_url is None,  # upstream owns durability in cluster mode
         load_concurrency=args.load_concurrency or None,
+        searcher=searcher,
     )
 
     replicator = None
@@ -134,11 +147,18 @@ def stop_server(server, mi, replicator, front=None, legacy=None) -> None:
 
 
 def run_server(args) -> None:
+    profiler = None
+    if args.profile_port:
+        from .utils.profiling import start_profiler_server
+
+        profiler = start_profiler_server(max(args.profile_port, 0))  # -1 = bind port 0
     server, mi, replicator, front, legacy = build_server(args)
     logging.info("serving on %s:%d (dir=%s)", args.host, server.port, args.dir)
     print(f"LISTENING {server.port}", flush=True)
     if front is not None:
         print(f"SEARCHPLANE {front.port}", flush=True)  # port-0 binds resolve here
+    if profiler is not None:
+        print(f"PROFILER {profiler.server_address[1]}", flush=True)
 
     # One search per open index in the background, so the first real query
     # doesn't pay the kernels' one-time build.
@@ -203,9 +223,10 @@ def main(argv=None) -> int:
     args, unknown = parser.parse_known_args(argv)
     for flag in unknown:
         logging.warning("ignoring unknown flag: %s", flag)
-    for name in NOT_PORTED:
-        if getattr(args, name):
-            parser.error(f"--{name.replace('_', '-')} is not yet ported to acoustid_index_tpu_torch")
+    if args.mesh_shards < 0:
+        parser.error("--mesh-shards must be >= 0")
+    if not -1 <= args.profile_port <= 65535:
+        parser.error("--profile-port must be a port number, 0 (off) or -1 (auto-pick)")
     if args.coordinator:
         run_coordinator(args)
     else:

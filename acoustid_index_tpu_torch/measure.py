@@ -28,6 +28,19 @@ memory tier, then reports:
     (one set), with nvidia-smi's SM clock and power draw read around each
     round; each must equal the plain version bit for bit on every set first.
 
+    python -m acoustid_index_tpu_torch.measure --mesh 1,2,4,8 [--out FILE]
+
+times the sharded program (parallel/: N shards as slices of the card) in
+place of the above: the same corpus packed once for the single program and
+once per shard count (ShardedBatchingSearcher's packing), every B=256
+batch's results first checked equal to the single program's; then, in
+turns (single, 1, 2, 4, 8, then the reverse, ...), 20 batches per turn,
+each launched and fetched as the searcher serves one: ms per batch by host
+clock and by CUDA events on the searcher's stream (launch to the batch's
+last work), kernel launches, host syncs and branches per batch; then the
+range phase alone by CUDA events, and 5 batches under torch.profiler for
+the card's kernel time per batch (K1 and K2 apart) and its busy share.
+
 Prints one JSON object as its last line and writes it to --out.  Needs a
 card; builds the kernels at first use like any other caller.
 """
@@ -674,10 +687,164 @@ def run_case(case, log=print):
     return rec
 
 
+MESH_SHARDS = (1, 2, 4, 8)
+MESH_ROUNDS, MESH_BATCHES, MESH_PROFILED = 4, 20, 5
+
+
+def _device_ms(events, name_has: str = "") -> float:
+    """Summed self time on the card (ms) of torch.profiler's averaged
+    events whose key holds `name_has`."""
+    import torch
+
+    return sum(
+        getattr(e, "self_device_time_total", 0) for e in events
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and name_has in e.key
+    ) / 1e3
+
+
+def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
+    """The sharded program at each shard count beside the single program,
+    on one 10M-doc file tier and an empty memory tier (module docstring)."""
+    import torch
+
+    from .engine.memseg import Segment
+    from .engine.model import SearchOptions, SegmentInfo
+    from .engine.searcher import Searcher, _pack_rows, _params_for
+    from .engine.segments import tier_view_for_search
+    from .ops import block_lookup as bl
+    from .ops import search_kernel as sk
+    from .parallel import sharded as sh
+    from .parallel.serving import ShardedBatchingSearcher
+
+    report = {"nvidia_smi": smi("name,power.limit"), "docs": N_DOCS, "batch": 256, "shards": list(shards)}
+    hashes, docids = sorted_corpus(N_DOCS, dev)
+    ids = np.arange(1, N_DOCS + 1, dtype=np.uint32)
+    seg = Segment(SegmentInfo(commit_id=1), hashes, docids, ids, np.ones(N_DOCS, bool), 1, N_DOCS)
+    del hashes, docids
+    configs = {"single": Searcher(dev)}
+    configs.update({f"mesh{n}": ShardedBatchingSearcher(sh.make_mesh(n, dev)) for n in shards})
+    views, report["pack_s"] = {}, {}
+    for name, searcher in configs.items():
+        t0 = time.perf_counter()
+        views[name] = SimpleNamespace(file_view=searcher.pack_file_tier([seg]), mem_view=searcher.pack_mem_tier([]))
+        report["pack_s"][name] = time.perf_counter() - t0
+    del seg
+    log(f"mesh: packed {list(configs)} in {json.dumps({k: round(v, 1) for k, v in report['pack_s'].items()})} s")
+
+    rng = np.random.default_rng(11)
+    opts = SearchOptions(max_results=10, min_score=6, min_score_pct=10)
+    params = _params_for(128)
+    single = configs["single"]
+
+    def packed_batch() -> np.ndarray:
+        th = doc_hashes(rng.integers(1, N_DOCS + 1, 256, dtype=np.uint32))
+        return _pack_rows(params, [single._row(*single.prepare_query(make_query(rng, h)), opts)[0] for h in th], 256)
+
+    packs = [packed_batch() for _ in range(MESH_BATCHES)]
+
+    def run(name, packed):
+        return configs[name]._fetch(configs[name]._launch(views[name], params, packed))
+
+    # Results first: every batch at every shard count equals the single
+    # program's ids, scores and counts.
+    n_res = 2 * params.out_len + 1
+    want = [run("single", p)[:, :n_res] for p in packs]
+    for name in configs:
+        for p, w in zip(packs, want):
+            got = run(name, p)[:, :n_res]
+            if not np.array_equal(got, w):
+                raise SystemExit(f"{name}: results differ from the single program's")
+    log(f"mesh: {MESH_BATCHES} batches of 256 equal to the single program's at {list(shards)} shards")
+
+    names = list(configs)
+    rec = {name: {"wall_ms": [], "events_ms": [], "launches": None, "host_syncs": None, "branches": None} for name in names}
+    for r in range(MESH_ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            searcher = configs[name]
+            stream = searcher._stream
+            l0, s0, b0 = dict(bl.LAUNCHES), dict(sk.STATS), dict(sh.STATS)
+            marks = []
+            for p in packs:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record(stream)
+                handle = searcher._launch(views[name], params, p)
+                end.record(stream)
+                searcher._fetch(handle)
+                rec[name]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                marks.append((start, end))
+            torch.cuda.synchronize()
+            rec[name]["events_ms"] += [a.elapsed_time(b) for a, b in marks]
+            per = {k: (bl.LAUNCHES[k] - l0[k]) / MESH_BATCHES for k in ("block_count", "block_count_emit")}
+            rec[name]["launches"] = per
+            rec[name]["host_syncs"] = (sk.STATS["host_syncs"] - s0["host_syncs"]) / MESH_BATCHES
+            rec[name]["branches"] = {k: sh.STATS[k] - b0[k] for k in sh.STATS if sh.STATS[k] != b0[k]} or {
+                k: sk.STATS[k] - s0[k] for k in ("direct", "matrix", "sort") if sk.STATS[k] != s0[k]}
+
+    for name in names:
+        searcher, v = configs[name], views[name]
+        f_t = tier_view_for_search(v.file_view, mentions=False)
+        m_t = tier_view_for_search(v.mem_view)
+        n = getattr(searcher, "n_shards", None)
+        ins = [torch.from_numpy(p.view(np.int32)).to(dev) for p in packs]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            start.record()
+            for x in ins:
+                qs, lens = sk.u32(x[:, :128]), x[:, 128].to(torch.int64)
+                for k in range(n or 1):
+                    ft = sh._local_tier(f_t, k, n) if n else f_t
+                    mt = sh._local_tier(m_t, k, n) if n else m_t
+                    sk._batch_ranges(params, ft, mt, qs, lens, want_emit=True)
+            end.record()
+        end.synchronize()
+        rec[name]["range_phase_ms_events"] = start.elapsed_time(end) / MESH_BATCHES
+
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for p in packs[:MESH_PROFILED]:
+                run(name, p)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        dev_ms = _device_ms(ev)
+        rec[name]["profile"] = {
+            "wall_ms_per_batch": wall / MESH_PROFILED,
+            "device_ms_per_batch": dev_ms / MESH_PROFILED,
+            "k1_ms_per_batch": _device_ms(ev, "block_count_kernel") / MESH_PROFILED,
+            "k2_ms_per_batch": _device_ms(ev, "block_count_emit_kernel") / MESH_PROFILED,
+            "kernels_ms_per_batch": _device_ms(ev, "block_count") / MESH_PROFILED,
+            "busy_share": dev_ms / wall,
+        }
+        rec[name]["wall_ms_median"] = float(np.median(rec[name]["wall_ms"]))
+        rec[name]["events_ms_median"] = float(np.median(rec[name]["events_ms"]))
+        log(f"mesh: {name}: {json.dumps({k: v for k, v in rec[name].items() if k not in ('wall_ms', 'events_ms')})}")
+    report["configs"] = rec
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join("chiprun_out", "measure.json"))
+    ap.add_argument("--out", default=None, help="default chiprun_out/measure.json (measure_mesh.json with --mesh)")
+    ap.add_argument("--mesh", default=None, help="comma-separated shard counts: time the sharded program only")
     args = ap.parse_args(argv)
+    if args.mesh:
+        from .utils.device import device
+
+        dev = device()
+        if dev.type != "cuda":
+            raise SystemExit(f"measure needs a card; the port's device is {dev}")
+        report = mesh_report(dev, [int(x) for x in args.mesh.split(",")])
+        out = args.out or os.path.join("chiprun_out", "measure_mesh.json")
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps(report), flush=True)
+        return 0
+    args.out = args.out or os.path.join("chiprun_out", "measure.json")
 
     import torch
 

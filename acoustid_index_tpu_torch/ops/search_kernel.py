@@ -230,18 +230,38 @@ def _final_select(p: SearchParams, cd, co, csc, c_valid, newest, limits, min_sco
     return {"ids": torch.where(mask, out_ids, 0), "scores": torch.where(mask, out_scores, 0), "count": n}
 
 
-def _batch_newest(mem_tier, cand_flat, valid_flat):
-    """Newest mention tier of each candidate: TIER_MEM where the memory
-    tier mentions it, -1 otherwise.  Skipped (exactly) when the memory tier
-    mentions nothing, or no valid candidate lies inside its id range."""
+def _newest_gate(mem_tier, cand_flat, valid_flat, mem_mentions_any=None):
+    """0-d bool on the device: the mention lookup can find anything, i.e.
+    the memory tier mentions some doc and a valid candidate lies inside
+    [ids[0], ids[len-1]] of its sorted table.  Sharded callers pass the
+    GLOBAL `mem_mentions_any` (a host bool); the range test stays against
+    this (local) table, which is all its lookup could find.  An empty table
+    reads sentinels for lo and hi, and then only a candidate 0xFFFFFFFF
+    passes the range test; its lookup answers "not mentioned" all the same."""
     ids = mem_tier["mention_ids"]
     mention_len = mem_tier["mention_len"].to(torch.int64)
     lo = u32(ids[0])
     hi = u32(ids.index_select(0, torch.clamp(mention_len - 1, min=0).reshape(1)))[0]
     in_range = (cand_flat >= lo) & (cand_flat <= hi)
-    (live,) = _host((mention_len > 0) & (in_range & valid_flat).any())
+    any_in_range = (in_range & valid_flat).any()
+    if mem_mentions_any is None:
+        return (mention_len > 0) & any_in_range
+    return any_in_range & bool(mem_mentions_any)
+
+
+def _batch_newest(mem_tier, cand_flat, valid_flat):
+    """Newest mention tier of each candidate: TIER_MEM where the memory
+    tier mentions it, -1 otherwise.  Skipped (exactly) when the gate
+    (_newest_gate) is shut; one host sync for the gate."""
+    (live,) = _host(_newest_gate(mem_tier, cand_flat, valid_flat))
     if not live:
         return torch.full_like(cand_flat, -1)
+    return _newest_lookup(mem_tier, cand_flat, valid_flat)
+
+
+def _newest_lookup(mem_tier, cand_flat, valid_flat):
+    """_batch_newest's lookup, with its gate open."""
+    ids = mem_tier["mention_ids"]
     cap = ids.shape[0]
     if cap % BLOCK == 0 and cap > 4096:
         found = mention_lookup_blocked(mem_tier, cand_flat, valid_flat)
@@ -343,6 +363,12 @@ def _final_select_matrix(p: SearchParams, d, score, win, cand, newest, limits, m
     return _rank_extract(p, d, score, keep, limits)
 
 
+def _tier_blocks(lo, cnt):
+    """BLOCKs each (B, Q) run [lo, lo + cnt) spans (0 for an empty run)."""
+    hi = lo + torch.clamp(cnt, min=1) - 1
+    return torch.where(cnt > 0, hi // BLOCK - lo // BLOCK + 1, 0)
+
+
 def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts):
     """(B, Q) batch: one range phase for the whole batch, then the direct,
     matrix or sort branch, chosen on the host exactly as the reference's
@@ -371,12 +397,7 @@ def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, li
     # Per-query load-skew signals: max postings of one hash (both tiers)
     # and max blocks one hash's run spans.
     max_per_hash = (f_cnt + m_cnt).amax(1)
-
-    def tier_blocks(lo, cnt):
-        hi = lo + torch.clamp(cnt, min=1) - 1
-        return torch.where(cnt > 0, hi // BLOCK - lo // BLOCK + 1, 0)
-
-    max_blocks_per_hash = (tier_blocks(f_lo, f_cnt) + tier_blocks(m_lo, m_cnt)).amax(1)
+    max_blocks_per_hash = (_tier_blocks(f_lo, f_cnt) + _tier_blocks(m_lo, m_cnt)).amax(1)
 
     def finish(res, totals, tr):
         res["postings_scanned"] = totals

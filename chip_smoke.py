@@ -67,15 +67,29 @@ Phases, each fatal on failure:
      separate process, every response holding its expected first result;
      K1's and K2's launch counters must grow during this path too.  Last, the
      same load against fronts of 1, 2, 4 and 8 pumps.
+  2c. mesh serving: a copy of phase 2's checkpointed directory (taken before
+     its writes) served through build_server with --mesh-shards 8 and a
+     search port (parallel/: 8 shards as slices of the card).  With the
+     launch counters at 0: the same 512 searches through the Python front
+     and the native front, every answer equal to the oracle and every body
+     byte-equal to phase 2's Python server's; phase 2's write mix (every
+     acknowledged write reads back, deleted docs vanish); the hot-hash
+     groups, which must take the sharded program's P_SMALL path and its
+     full-budget path (parallel.sharded.STATS).  K1 and K2 must launch at
+     least 8 times per sharded batch, the scans never, with at most 2 host
+     syncs per batch.  Then dryrun_multichip(8) on the card.
   2b. the model wrapper at the same width: FingerprintSearchModel.ingest of
      the 240M postings on the card, then one B=256 forward under a
      profiler capture (utils/profiling.py; its trace must hold the
      kernels): every answer equal to the oracle, K1's and K2's launch
      counters grown; then entry() once.
   3. the CLI entry: `python -m acoustid_index_tpu_torch.main --port 0
-     --search-port -1 --legacy-port N` serves a PUT and a search on its
-     HTTP and native ports, a begin/insert/commit/search session on its
-     legacy port whose answer equals the HTTP search, and stops on SIGTERM.
+     --search-port -1 --legacy-port N --mesh-shards 4 --profile-port -1`
+     over a directory holding a checkpointed 12,000-doc index serves a PUT
+     and a search on its HTTP and native ports, a begin/insert/commit/search
+     session on its legacy port whose answer equals the HTTP search, one
+     capture on its profiler port whose trace holds K1 and K2 (searches of
+     the 12,000-doc index run meanwhile), and stops on SIGTERM.
 
 The run fails if jax, any module of acoustid_index_tpu or of probes/ was
 imported.
@@ -110,6 +124,9 @@ MERGE_SOURCES = 8  # phase 1b: sources of each merged run (plus one newer source
 MERGE_SIZES = (100_000, 1_000_000, 10_000_000)  # phase 1b: postings of the runs, each checked bit for bit and timed
 MERGE_ROUNDS = 3
 MODEL_BATCH = 256  # phase 2b: queries of the model wrapper's forward
+MESH_SHARDS = 8  # phase 2c: shards of the sharded server (slices of the one card)
+CLI_SHARDS, CLI_DOCS = 4, 12_000  # phase 3: the CLI's --mesh-shards, and the docs of its pre-built index
+CLI_RESIDENT_MAX_BYTES = 64 * 1024  # phase 3: its file tier interleaves (~73K entries per shard)
 
 
 def log(msg: str) -> None:
@@ -417,9 +434,100 @@ def post_updates(base: str, changes) -> None:
         check(r.status_code == 200, f"_update failed: {r.status_code} {r.text}")
 
 
-def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
+N_NEW = 1000  # new docs of the write mix
+
+
+def write_mix(base: str, n_docs: int, targets, queries, rng, base_seg, label: str):
+    """Writes over HTTP (N_NEW new docs, 5 re-inserts, 5 deletes of
+    targets), then searches for the new and the re-inserted docs and some
+    old ones: every answer equal to the oracle, every acknowledged write
+    read back first, deleted docs gone.  Returns (the oracle's segments
+    after the writes, figures)."""
     import numpy as np
     import requests
+
+    from acoustid_index_tpu_torch.measure import doc_hashes, make_query
+    from oracle import OracleSegment
+
+    new_ids = np.arange(n_docs + 1, n_docs + 1 + N_NEW, dtype=np.uint32)
+    new_h = doc_hashes(new_ids)
+    reins = [int(t) for t in targets[:5]]
+    reins_h = doc_hashes(np.asarray(reins, np.uint32) + np.uint32(3_000_000_000))
+    dels = [int(t) for t in targets[5:10]]
+    t1 = time.perf_counter()
+    post_updates(base, [{"insert": {"id": int(i), "hashes": new_h[k].tolist()}} for k, i in enumerate(new_ids)])
+    for k, i in enumerate(reins):
+        r = requests.put(f"{base}/main/{i}", json={"hashes": reins_h[k].tolist()}, timeout=60)
+        check(r.status_code == 200, f"PUT failed: {r.status_code} {r.text}")
+    for i in dels:
+        r = requests.delete(f"{base}/main/{i}", timeout=60)
+        check(r.status_code == 200, f"DELETE failed: {r.status_code} {r.text}")
+    writes_s = time.perf_counter() - t1
+
+    latest = {int(i): new_h[k].tolist() for k, i in enumerate(new_ids)}
+    latest.update({i: reins_h[k].tolist() for k, i in enumerate(reins)})
+    items = [(h, d) for d, hs in latest.items() for h in hs]
+    segments = [base_seg, OracleSegment(items, {**{d: True for d in latest}, **{d: False for d in dels}})]
+
+    q_new = [make_query(rng, new_h[k]) for k in range(N_NEW)]
+    q_old = queries[:10] + [make_query(rng, reins_h[k]) for k in range(5)]
+    answers_new, _, _ = run_searches(base, q_new + q_old)
+    check_answers(q_new + q_old, answers_new, segments, f"{label}: after writes")
+    for k, i in enumerate(new_ids):
+        top = answers_new[k][1]["results"]
+        check(top and top[0]["id"] == int(i), f"{label}: new doc {i} does not read back first: {top[:2]}")
+    for (_, body, _) in answers_new[N_NEW : N_NEW + 10]:
+        check(not any(r["id"] in dels for r in body["results"]), f"{label}: a deleted doc was returned")
+    for i in dels:
+        check(requests.get(f"{base}/main/{i}", timeout=60).status_code == 404, f"{label}: deleted doc {i} still found")
+    for i in list(new_ids[:20]) + reins:
+        check(requests.head(f"{base}/main/{int(i)}", timeout=60).status_code == 200, f"{label}: doc {i} not found")
+    log(f"{label}: {N_NEW} new docs, {len(reins)} re-inserts, {len(dels)} deletes in {writes_s:.2f} s; "
+        f"{len(q_new) + len(q_old)} searches equal the oracle; every write reads back; deleted docs gone")
+    return segments, {"writes_s": writes_s, "searches": len(q_new) + len(q_old)}
+
+
+def hot_hash_groups(base: str, next_id: int, segments, rng, counts, groups, label: str) -> dict:
+    """For each (branch, n_hot, hot_hash) of `groups`: n_hot docs that share
+    hot_hash, then searches for them, sent alone so that every batch takes
+    `branch` (a key of `counts()`, the program's branch counters).  A query
+    gathers the hot hash's whole memory-tier run: over P_MEM_DIRECT
+    postings rules out the direct path; with at most P_SMALL in all the
+    batch takes the P_SMALL gather, above it the full budget.  Every answer
+    equals the oracle and ranks its doc first.  Appends to `segments`."""
+    import numpy as np
+
+    from acoustid_index_tpu_torch.measure import doc_hashes, make_query
+    from oracle import OracleSegment
+
+    out = {}
+    for branch, n_hot, hot_hash in groups:
+        hot_ids = np.arange(next_id, next_id + n_hot, dtype=np.uint32)
+        next_id += n_hot
+        hot_h = doc_hashes(hot_ids)
+        hot_h[:, 0] = hot_hash
+        post_updates(base, [{"insert": {"id": int(i), "hashes": hot_h[k].tolist()}} for k, i in enumerate(hot_ids)])
+        segments.append(OracleSegment([(h, int(d)) for d, hs in zip(hot_ids, hot_h.tolist()) for h in hs],
+                                      {int(d): True for d in hot_ids}))
+        q_hot = [make_query(rng, hot_h[k]) for k in range(min(n_hot, 64))]
+        before = counts()
+        answers_hot, _, _ = run_searches(base, q_hot)
+        ran = {k: v - before[k] for k, v in counts().items()}
+        check_answers(q_hot, answers_hot, segments, f"{label}: hot hash, {branch} branch")
+        for k, (_, body, _) in enumerate(answers_hot):
+            check(body["results"] and body["results"][0]["id"] == int(hot_ids[k]),
+                  f"{label}: hot doc {hot_ids[k]} not first: {body['results'][:2]}")
+        check(ran[branch] > 0 and sum(ran.values()) == ran[branch], f"{label}: {branch} queries ran the batches {ran}")
+        out[f"hot_{branch}"] = {"docs": n_hot, "searches": len(q_hot), "batches": ran}
+        log(f"{label}: {n_hot} docs sharing hash {hot_hash:#x}; {len(q_hot)} searches equal the oracle, "
+            f"every batch on the {branch} branch {ran}")
+    return out
+
+
+def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
+    """Returns (figures, what phase 2c reuses: a copy of the checkpointed
+    directory, the read phase's queries and the Python server's bodies)."""
+    import numpy as np
 
     from acoustid_index_tpu_torch import main as cli
     from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
@@ -429,7 +537,6 @@ def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
     from acoustid_index_tpu_torch.ops import search_kernel as sk
     from acoustid_index_tpu_torch.ops.layout import postings_cap
     from acoustid_index_tpu_torch.utils.device import device
-    from oracle import OracleSegment
 
     dev = device()
     stats = {"docs": n_docs, "postings": n_docs * HASHES_PER_DOC}
@@ -474,6 +581,12 @@ def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
             f"(under the profiler, its export included); merges by route {merges}; spans, ms: "
             + json.dumps({k: round(v, 3) for k, v in sorted(stats["checkpoint_spans_ms"].items())}))
         check(merges["device"] >= 1 and merges["fallback"] == 0, f"the checkpoint did not merge on the card: {merges}")
+        # Phase 2c serves this checkpointed directory again, sharded: a copy
+        # taken before phase 2's writes.
+        t1 = time.perf_counter()
+        mesh_dir = tmp + "_mesh"
+        shutil.copytree(tmp, mesh_dir)
+        stats["dir_copy_s"] = time.perf_counter() - t1
 
         # Reopen and serve as the CLI does, with a fresh process-wide searcher.
         t1 = time.perf_counter()
@@ -509,6 +622,7 @@ def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
         stats0 = dict(sk.STATS)
         answers, wall, lat = run_searches(base, queries)
         check_answers(queries, answers, [base_seg], "read phase")
+        handoff = {"dir": mesh_dir, "queries": queries, "targets": targets, "bodies": [a[2] for a in answers]}
         hits = sum(1 for (_, body, _), t in zip(answers, targets) if body["results"] and body["results"][0]["id"] == int(t))
         p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
         stats.update(search_requests=n_requests, search_wall_s=wall, search_qps=n_requests / wall, target_top1=hits,
@@ -517,75 +631,16 @@ def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
             f"(wall clock), latency p50 {p50:.2f} ms p99 {p99:.2f} ms; all equal the oracle; "
             f"target ranked first in {hits}/{n_requests}; batches {stats['read_branches']}")
 
-        # ---- writes over HTTP: new docs, re-inserts, deletes ----
-        n_new = 1000
-        new_ids = np.arange(n_docs + 1, n_docs + 1 + n_new, dtype=np.uint32)
-        new_h = doc_hashes(new_ids)
-        reins = [int(t) for t in targets[:5]]
-        reins_h = doc_hashes(np.asarray(reins, np.uint32) + np.uint32(3_000_000_000))
-        dels = [int(t) for t in targets[5:10]]
-        t1 = time.perf_counter()
-        post_updates(base, [{"insert": {"id": int(i), "hashes": new_h[k].tolist()}} for k, i in enumerate(new_ids)])
-        for k, i in enumerate(reins):
-            r = requests.put(f"{base}/main/{i}", json={"hashes": reins_h[k].tolist()}, timeout=60)
-            check(r.status_code == 200, f"PUT failed: {r.status_code} {r.text}")
-        for i in dels:
-            r = requests.delete(f"{base}/main/{i}", timeout=60)
-            check(r.status_code == 200, f"DELETE failed: {r.status_code} {r.text}")
-        stats["writes_s"] = time.perf_counter() - t1
-
-        latest = {int(i): new_h[k].tolist() for k, i in enumerate(new_ids)}
-        latest.update({i: reins_h[k].tolist() for k, i in enumerate(reins)})
-        items = [(h, d) for d, hs in latest.items() for h in hs]
-        segments = [base_seg, OracleSegment(items, {**{d: True for d in latest}, **{d: False for d in dels}})]
-
+        # ---- writes over HTTP, then docs that share one hot hash ----
+        segments, stats["writes"] = write_mix(base, n_docs, targets, queries, rng, base_seg, "phase2")
         mem_view = index.ensure_views(index.acquire_reader()).mem_view
         mem_cap = int(mem_view["hashes"].shape[0]) if "hashes" in mem_view else None
         check(mem_cap is not None and mem_cap > 4096, f"memory tier cap {mem_cap}: not on the resident path")
-
-        q_new = [make_query(rng, new_h[k]) for k in range(n_new)]
-        q_old = queries[:10] + [make_query(rng, reins_h[k]) for k in range(5)]
-        answers_new, wall_new, _ = run_searches(base, q_new + q_old)
-        check_answers(q_new + q_old, answers_new, segments, "after writes")
-        for k, i in enumerate(new_ids):
-            top = answers_new[k][1]["results"]
-            check(top and top[0]["id"] == int(i), f"new doc {i} does not read back first: {top[:2]}")
-        for (_, body, _) in answers_new[n_new : n_new + 10]:
-            check(not any(r["id"] in dels for r in body["results"]), "a deleted doc was returned")
-        for i in dels:
-            check(requests.get(f"{base}/main/{i}", timeout=60).status_code == 404, f"deleted doc {i} still found")
-        for i in list(new_ids[:20]) + reins:
-            check(requests.head(f"{base}/main/{int(i)}", timeout=60).status_code == 200, f"doc {i} not found")
-        log(f"phase2: {n_new} new docs, {len(reins)} re-inserts, {len(dels)} deletes in {stats['writes_s']:.2f} s; "
-            f"{len(q_new) + len(q_old)} searches equal the oracle; every write reads back; deleted docs gone; "
-            f"memory tier cap {mem_cap} (resident path)")
-
-        # ---- heavy queries: docs sharing one hot hash, over HTTP ----
-        # A query for one of them gathers the hot hash's whole memory-tier
-        # run: over P_MEM_DIRECT postings rules out the direct branch; with
-        # at most P_SMALL in all the batch takes the matrix branch, above it
-        # the sort branch.  Each group is sent alone, so every batch of it
-        # takes its branch.
-        next_id = n_docs + 1 + n_new
-        for branch, n_hot, hot_hash in (("matrix", sk.P_MEM_DIRECT + 36, 0x5EED0001), ("sort", sk.P_SMALL + 44, 0x5EED0002)):
-            hot_ids = np.arange(next_id, next_id + n_hot, dtype=np.uint32)
-            next_id += n_hot
-            hot_h = doc_hashes(hot_ids)
-            hot_h[:, 0] = hot_hash
-            post_updates(base, [{"insert": {"id": int(i), "hashes": hot_h[k].tolist()}} for k, i in enumerate(hot_ids)])
-            segments.append(OracleSegment([(h, int(d)) for d, hs in zip(hot_ids, hot_h.tolist()) for h in hs],
-                                          {int(d): True for d in hot_ids}))
-            q_hot = [make_query(rng, hot_h[k]) for k in range(min(n_hot, 64))]
-            before = dict(sk.STATS)
-            answers_hot, _, _ = run_searches(base, q_hot)
-            ran = {k: sk.STATS[k] - before[k] for k in ("direct", "matrix", "sort")}
-            check_answers(q_hot, answers_hot, segments, f"hot hash, {branch} branch")
-            for k, (_, body, _) in enumerate(answers_hot):
-                check(body["results"] and body["results"][0]["id"] == int(hot_ids[k]), f"hot doc {hot_ids[k]} not first: {body['results'][:2]}")
-            check(ran[branch] > 0 and sum(ran.values()) == ran[branch], f"{branch} queries ran the batches {ran}")
-            stats[f"hot_{branch}"] = {"docs": n_hot, "searches": len(q_hot), "batches": ran}
-            log(f"phase2: {n_hot} docs sharing hash {hot_hash:#x}; {len(q_hot)} searches equal the oracle, "
-                f"every batch on the {branch} branch {ran}")
+        log(f"phase2: memory tier cap {mem_cap} (resident path)")
+        stats.update(hot_hash_groups(
+            base, n_docs + 1 + N_NEW, segments, rng, lambda: {k: sk.STATS[k] for k in ("direct", "matrix", "sort")},
+            (("matrix", sk.P_MEM_DIRECT + 36, 0x5EED0001), ("sort", sk.P_SMALL + 44, 0x5EED0002)), "phase2",
+        ))
 
         stats["launches"] = dict(bl.LAUNCHES)
         stats["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
@@ -600,7 +655,10 @@ def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
         stats["native"] = native_path(mi, front, base, queries, segments)
         stats["serving_merges"] = index.merge_counts.as_dict()
         check(stats["serving_merges"]["fallback"] == 0, f"a merge fell back to the host: {stats['serving_merges']}")
-        return stats
+        return stats, handoff
+    except BaseException:
+        shutil.rmtree(tmp + "_mesh", ignore_errors=True)
+        raise
     finally:
         if served is not None:
             cli.stop_server(*served)
@@ -690,6 +748,108 @@ def native_path(mi, front, py_base, queries, segments):
     return out
 
 
+# ---------------------------------------------------------------- phase 2c
+
+
+def phase2c_mesh(handoff, n_docs: int, native_built, base_seg):
+    """Mesh serving: phase 2's checkpointed directory served again through
+    build_server with --mesh-shards MESH_SHARDS and a search port.  The
+    same searches through both fronts, equal to the oracle and byte-equal
+    to phase 2's Python server; the write mix; the hot-hash groups on the
+    sharded program's P_SMALL and full-budget paths; K1 and K2 launched at
+    least MESH_SHARDS times per batch, at most 2 host syncs per batch;
+    then dryrun_multichip(MESH_SHARDS) on the card."""
+    import numpy as np
+
+    from acoustid_index_tpu_torch import main as cli
+    from acoustid_index_tpu_torch.entry import dryrun_multichip
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.ops import search_kernel as sk
+    from acoustid_index_tpu_torch.parallel import sharded as sh
+    from acoustid_index_tpu_torch.parallel.serving import ShardedBatchingSearcher
+    from acoustid_index_tpu_torch.utils.device import device
+
+    tmp, queries, py_bodies = handoff["dir"], handoff["queries"], handoff["bodies"]
+    stats = {"shards": MESH_SHARDS, "searches": len(queries)}
+    served = None
+    try:
+        t1 = time.perf_counter()
+        native_built()
+        args = cli.build_parser().parse_args(["--dir", tmp, "--host", "127.0.0.1", "--port", "0", "--checkpoint-age-ms", "0",
+                                              "--search-port", "-1", "--mesh-shards", str(MESH_SHARDS)])
+        served = cli.build_server(args)
+        server, mi, _, front, _ = served
+        server.serve_background()
+        stats["reopen_s"] = time.perf_counter() - t1
+        check(isinstance(mi.searcher, ShardedBatchingSearcher) and mi.searcher.n_shards == MESH_SHARDS,
+              f"build_server did not shard search: {type(mi.searcher).__name__}")
+        ref = mi._get_ref("main")
+        index = ref.index
+        mi._release_ref(ref)
+        snap = index.ensure_views(index.acquire_reader())
+        check(not snap.memory and len(snap.file) == 1, "reopened index is not one file segment")
+        inter = snap.file_view.get("inter")
+        check(inter is not None and inter.device.type == device().type, "the sharded file tier is not interleaved on the card")
+        shard_cap = inter.numel() // (2 * MESH_SHARDS)
+        live = snap.file_view["seg_len"].reshape(MESH_SHARDS, -1).sum(1).tolist()
+        check(sum(live) == n_docs * HASHES_PER_DOC, f"the shards hold {sum(live)} postings")
+        stats.update(file_tier_bytes=inter.numel() * 4, shard_cap=shard_cap, shard_postings=live)
+        log(f"phase2c: reopened phase 2's directory over {MESH_SHARDS} shards in {stats['reopen_s']:.1f} s: "
+            f"{inter.numel() * 4 / 2**30:.2f} GiB interleaved, {shard_cap} entries per shard, postings per shard {live}")
+        del snap, inter
+
+        base = f"http://127.0.0.1:{server.port}"
+        native = f"http://127.0.0.1:{front.port}"
+        for k in bl.LAUNCHES:
+            bl.LAUNCHES[k] = 0
+        syncs0, branches0 = sk.STATS["host_syncs"], dict(sh.STATS)
+        for label, url in (("Python HTTP", base), ("native front", native)):
+            answers, wall, lat = run_searches(url, queries)
+            check_answers(queries, answers, [base_seg], f"phase2c {label}")
+            same = sum(a[2] == b for a, b in zip(answers, py_bodies))
+            check(same == len(queries), f"phase2c {label}: {same}/{len(queries)} bodies byte-equal to phase 2's Python server")
+            p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
+            stats[label] = {"wall_s": wall, "qps": len(queries) / wall, "latency_p50_ms": p50, "latency_p99_ms": p99}
+            log(f"phase2c: {len(queries)} searches through the {label} in {wall:.3f} s = {len(queries) / wall:.1f} qps "
+                f"(wall clock), latency p50 {p50:.2f} ms p99 {p99:.2f} ms; all equal the oracle and byte-equal to "
+                f"phase 2's single-path bodies")
+
+        rng = np.random.default_rng(8)
+        segments, stats["writes"] = write_mix(base, n_docs, handoff["targets"], queries, rng, base_seg, "phase2c")
+        stats.update(hot_hash_groups(
+            base, n_docs + 1 + N_NEW, segments, rng,
+            lambda: {k: sh.STATS[k] for k in ("direct_wide", "direct_narrow", "small", "full")},
+            (("small", sk.P_MEM_DIRECT + 36, 0x5EED0001), ("full", sk.P_SMALL + 44, 0x5EED0002)), "phase2c",
+        ))
+
+        batches = sh.STATS["batches"] - branches0["batches"]
+        syncs = sk.STATS["host_syncs"] - syncs0
+        stats.update(launches=dict(bl.LAUNCHES), batches=batches, host_syncs=syncs,
+                     branches={k: sh.STATS[k] - branches0[k] for k in sh.STATS})
+        log(f"phase2c: {batches} sharded batches; launches {stats['launches']}; host syncs {syncs}; "
+            f"branches {stats['branches']}")
+        for k in ("block_count", "block_count_emit"):
+            check(stats["launches"][k] >= MESH_SHARDS * batches > 0,
+                  f"{k} launched {stats['launches'][k]} times in {batches} batches of {MESH_SHARDS} shards")
+        for k in ("block_count_scan", "block_count_emit_scan"):
+            check(stats["launches"][k] == 0, f"{k} launched on the sharded path")
+        check(syncs <= 2 * batches, f"{syncs} host syncs in {batches} sharded batches")
+        stats["serving_merges"] = index.merge_counts.as_dict()
+        check(stats["serving_merges"]["fallback"] == 0, f"a merge fell back to the host: {stats['serving_merges']}")
+    finally:
+        if served is not None:
+            cli.stop_server(*served)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        dryrun_multichip(MESH_SHARDS)
+    stats["dryrun_s"] = time.perf_counter() - t1
+    log(f"phase2c: {out.getvalue().strip()} ({stats['dryrun_s']:.1f} s)")
+    return stats
+
+
 # ---------------------------------------------------------------- phase 2b
 
 
@@ -773,19 +933,51 @@ def phase2b_model(dev, n_docs: int, base_seg):
 # ---------------------------------------------------------------- phase 3
 
 
-def phase3_cli():
-    import requests
+def cli_corpus(path: str) -> None:
+    """The index "big" under `path`: CLI_DOCS docs of 24 hashes, checkpointed
+    into one file segment, so that the CLI's search reaches K2 (the file
+    tier interleaves at CLI_RESIDENT_MAX_BYTES) and K1."""
+    import numpy as np
 
+    from acoustid_index_tpu_torch.engine.searcher import BatchingSearcher
+    from acoustid_index_tpu_torch.measure import doc_hashes
+    from acoustid_index_tpu_torch.multi.multi_index import MultiIndex
+
+    searcher = BatchingSearcher()
+    mi = MultiIndex.open(path, searcher=searcher, checkpoint_age=None)
+    try:
+        mi.create_index("big")
+        ref = mi._get_ref("big")
+        try:
+            ids = np.arange(1, CLI_DOCS + 1, dtype=np.uint32)
+            ref.index.bulk_insert(ids, doc_hashes(ids))
+            ref.index.checkpoint(force=True)
+            check(not ref.index.acquire_reader().memory, "phase3: the checkpoint left memory segments")
+        finally:
+            mi._release_ref(ref)
+    finally:
+        mi.close()
+        searcher.close()
+
+
+def phase3_cli():
     import socket
 
+    import numpy as np
+    import requests
+
+    from acoustid_index_tpu_torch.measure import doc_hashes, make_query
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli_corpus(tmp)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               AITPU_RESIDENT_MAX_BYTES=str(CLI_RESIDENT_MAX_BYTES))
     with socket.socket() as probe:  # --legacy-port takes a port number (0 = off)
         probe.bind(("127.0.0.1", 0))
         legacy_port = probe.getsockname()[1]
     proc = subprocess.Popen(
         [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--dir", tmp, "--port", "0", "--search-port", "-1",
-         "--legacy-port", str(legacy_port)],
+         "--legacy-port", str(legacy_port), "--mesh-shards", str(CLI_SHARDS), "--profile-port", "-1"],
         cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
     )
     # A thread reads the announcements: both lines can arrive in one read,
@@ -795,14 +987,14 @@ def phase3_cli():
     threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
         ports, deadline = {}, time.time() + 180
-        while len(ports) < 2:  # LISTENING <http port>, then SEARCHPLANE <native port>
+        while len(ports) < 3:  # LISTENING <http port>, SEARCHPLANE <native port>, PROFILER <capture port>
             left = deadline - time.time()
             check(left > 0 and proc.poll() is None, f"CLI server announced only {ports}")
             try:
                 word, _, port = lines.get(timeout=min(left, 1.0)).partition(" ")
             except queue.Empty:
                 continue
-            if word in ("LISTENING", "SEARCHPLANE"):
+            if word in ("LISTENING", "SEARCHPLANE", "PROFILER"):
                 ports[word] = int(port)
         base = f"http://127.0.0.1:{ports['LISTENING']}"
         check(requests.put(f"{base}/cli", timeout=60).status_code == 200, "CLI: PUT index failed")
@@ -825,12 +1017,44 @@ def phase3_cli():
         http = "OK " + " ".join(f"{x['id']}:{x['score']}" for x in r.json()["results"]) + "\r\n"
         check(replies[:4] == ["OK \r\n"] * 4 and replies[4] == http == "OK 10:3 12:3\r\n",
               f"CLI legacy session {replies} against the HTTP search {http!r}")
+
+        # One profiler capture while searches of the pre-built index run
+        # (one every 0.1 s until it returns: the profiler's start-up takes
+        # a moment of the window); its trace must hold K1's and K2's
+        # kernels, launched by the sharded program in the server process.
+        target = 7
+        query = make_query(np.random.default_rng(3), doc_hashes(np.array([target]))[0])
+        got = {}
+        t_cap = threading.Thread(target=lambda: got.update(
+            r=requests.get(f"http://127.0.0.1:{ports['PROFILER']}/capture?ms=3000", timeout=120)))
+        t_cap.start()
+        searches = 0
+        while t_cap.is_alive():
+            r = requests.post(f"{base}/big/_search", json={"query": query, **QUERY_OPTS}, timeout=60)
+            check(r.status_code == 200 and r.json()["results"][:1] == [{"id": target, "score": 20}],  # its 20 hashes
+                  f"CLI search of the pre-built index: {r.status_code} {r.text[:200]}")
+            searches += 1
+            time.sleep(0.1)
+        t_cap.join()
+        check(got["r"].status_code == 200, f"CLI capture: HTTP {got['r'].status_code} {got['r'].text[:200]}")
+        events = json.loads(got["r"].content)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        traced = sorted({k for k in ("block_count_kernel", "block_count_emit_kernel") for n in names if k in n})
+        check(traced == ["block_count_emit_kernel", "block_count_kernel"],
+              f"the CLI's capture over {searches} searches holds {traced} of K1/K2: kernels "
+              f"{sorted(n for n in names if 'kernel' in n)[:8]}, categories {sorted({e.get('cat', '') for e in events})}, "
+              f"spans {sorted(n for n in names if n.startswith('search_dispatch'))[:4]}")
+        stats = {"shards": CLI_SHARDS, "capture_bytes": len(got["r"].content), "searches_in_capture": searches,
+                 "traced_kernels": traced}
+
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         check(rc == 0, f"CLI server exited {rc} on SIGTERM")
-        log("phase3: CLI entry served PUT + a search on its HTTP port and on its native search port, "
-            f"a legacy-protocol begin/insert/commit/search on its legacy port ({replies[4].strip()!r}, "
-            "equal to the HTTP search), and stopped on SIGTERM")
+        log(f"phase3: CLI entry (--mesh-shards {CLI_SHARDS}) served PUT + a search on its HTTP port and on its native "
+            f"search port, a legacy-protocol begin/insert/commit/search on its legacy port ({replies[4].strip()!r}, "
+            f"equal to the HTTP search), a capture on its profiler port whose trace holds {traced} over {searches} "
+            f"searches of {CLI_DOCS} docs, and stopped on SIGTERM")
+        return stats
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -935,25 +1159,27 @@ def main() -> int:
     t0 = time.perf_counter()
     base_seg = BaseSegment(*sorted_corpus(N_DOCS, dev), N_DOCS)
     oracle_sort_s = time.perf_counter() - t0
-    serving = phase2_serving(N_DOCS, N_REQUESTS, native_built, base_seg)
+    serving, handoff = phase2_serving(N_DOCS, N_REQUESTS, native_built, base_seg)
     serving["oracle_sort_s"] = oracle_sort_s
+    mesh = phase2c_mesh(handoff, N_DOCS, native_built, base_seg)
+    del handoff
     model = phase2b_model(dev, N_DOCS, base_seg)
     del base_seg
     paths = (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"]),
-             ("model forward", model["launches"]))
+             ("mesh serving", mesh["launches"]), ("model forward", model["launches"]))
     for path, launches in paths:
         check(launches["block_count"] > 0, f"K1 block_count never launched on the {path} path")
         check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
         for scan in ("block_count_scan", "block_count_emit_scan"):
             check(launches[scan] == 0, f"{scan} launched {launches[scan]} times on the {path} path")
-    phase3_cli()
+    cli_stats = phase3_cli()
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("acoustid_index_tpu", "probes"))
     check(not ref_mods, f"modules of the JAX package or of probes/ were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
-    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase2": serving, "phase2b": model,
-              "total_s": total, "nvidia_smi": smi}
+    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase2": serving, "phase2c": mesh,
+              "phase2b": model, "phase3": cli_stats, "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -962,7 +1188,8 @@ def main() -> int:
 
     def launches(name):
         return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name],
-                "model_forward": model["launches"][name], "probes": probe_launches[name]}
+                "mesh_serving": mesh["launches"][name], "model_forward": model["launches"][name],
+                "probes": probe_launches[name]}
 
     def of(kernel):
         return [r for r in kern if r["kernel"] == kernel]
