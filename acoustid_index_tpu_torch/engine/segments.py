@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.layout import BLOCK, interleave_np, resident_max_bytes, use_interleaved
+from ..utils.profiling import trace
 from .memseg import Segment
 
 FILE_SLOTS = 64
@@ -254,9 +255,9 @@ def pack_tier(
         from ..utils.device import device as default_device
 
         device = default_device()
-    view = tier_from_numpy(
-        pack_tier_np(segments, slots, min_cap, min_slots, min_caps), device, mentions=device_mentions
-    )
+    tier = pack_tier_np(segments, slots, min_cap, min_slots, min_caps)
+    with trace("tier.upload"):
+        view = tier_from_numpy(tier, device, mentions=device_mentions)
     view["view_token"] = next(_VIEW_TOKENS)
     return view
 

@@ -31,6 +31,7 @@ from ..engine.model import Change, Delete, Insert, SearchOptions, SearchResult, 
 from ..engine.searcher import Searcher, default_searcher
 from . import redirect as index_redirect
 from ..server import metrics
+from ..utils.profiling import trace
 
 log = logging.getLogger("acoustid_index_tpu_torch.multi")
 
@@ -375,7 +376,8 @@ class MultiIndex:
         restore = os.path.join(vdir, "data.restore")
         shutil.rmtree(restore, ignore_errors=True)
         try:
-            snapshot_wire.restore_into(restore, chunks, expect_generation=generation)
+            with trace("bootstrap.transfer"):
+                snapshot_wire.restore_into(restore, chunks, expect_generation=generation)
         except Exception:
             shutil.rmtree(restore, ignore_errors=True)
             raise
@@ -447,7 +449,8 @@ class MultiIndex:
             shutil.rmtree(os.path.join(vdir, "data"), ignore_errors=True)
             os.replace(os.path.join(vdir, "data.restore"), os.path.join(vdir, "data"))
             shutil.rmtree(os.path.join(vdir, "oplog"), ignore_errors=True)
-            ref.index = self._open_lineage(name, generation)
+            with trace("bootstrap.reopen"):
+                ref.index = self._open_lineage(name, generation)
             version = ref.index.version
             with self._lock:
                 ref.being_deleted = False

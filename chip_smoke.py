@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of acoustid_index_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py    # one card, ~3 minutes; exits 2 without CUDA
+    python3 chip_smoke.py    # one card, ~8 minutes; exits 2 without CUDA
 
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
@@ -78,6 +78,23 @@ Phases, each fatal on failure:
      full-budget path (parallel.sharded.STATS).  K1 and K2 must launch at
      least 8 times per sharded batch, the scans never, with at most 2 host
      syncs per batch.  Then dryrun_multichip(8) on the card.
+  2d. the replicated deployment: a durable coordinator through the CLI
+     (`python -m acoustid_index_tpu_torch.main --coordinator --coordinator-dir
+     D --port 0`) and replicas A and B through build_server in this process
+     (--coordinator-url).  1M docs of the bench's shape go in as msgpack
+     `POST /main/_update` entries of 50K docs through A (each acknowledged
+     once A has applied it); A's checkpoints must merge on the card with no
+     host fallback.  512 queries of phase 2's shape on A equal the oracle.
+     The coordinator's retention is truncated below its head, and B starts
+     with --peers A: it must bootstrap from A's /_snapshot (answering 503 /
+     LOADING while it fills, timed by its spans under a capture), catch up
+     from the changelog and answer the 512 queries equal to the oracle and
+     byte-equal to A.  Phase 2's write mix goes through B: every write reads
+     back on B at once and on A once A's watermark reaches it, deleted docs
+     vanish on both; 10 single writes time the lag from B's acknowledgement
+     to A.  The coordinator is SIGKILLed and restarted on its directory: a
+     write through A reads back on both.  K1 and K2 must launch in A's and in
+     B's search rounds, counted apart, the scans never.
   2b. the model wrapper at the same width: FingerprintSearchModel.ingest of
      the 240M postings on the card, then one B=256 forward under a
      profiler capture (utils/profiling.py; its trace must hold the
@@ -127,6 +144,17 @@ MODEL_BATCH = 256  # phase 2b: queries of the model wrapper's forward
 MESH_SHARDS = 8  # phase 2c: shards of the sharded server (slices of the one card)
 CLI_SHARDS, CLI_DOCS = 4, 12_000  # phase 3: the CLI's --mesh-shards, and the docs of its pre-built index
 CLI_RESIDENT_MAX_BYTES = 64 * 1024  # phase 3: its file tier interleaves (~73K entries per shard)
+# Phase 2d: docs written through the changelog (the bench's 10M cut to 1M:
+# every doc passes the host's change path -- decode, the coordinator's
+# append, the consumer's reads, a commit that repacks the memory tier -- at
+# ~13-17 s per 100K docs); docs per _update entry (6.8 MB of msgpack: a
+# 100K-doc entry took 29.5 s to acknowledge when the coordinator compacted
+# its log under it, against the 30 s read-your-writes deadline); A's and
+# B's checkpoint threshold in postings (each checkpoint merges >= 10^6
+# postings on the card); single writes timed from B's acknowledgement to A.
+REPLICA_DOCS, REPLICA_ENTRY_DOCS = 1_000_000, 50_000
+REPLICA_CHECKPOINT = 1_200_000
+REPLICA_LAG_WRITES = 10
 
 
 def log(msg: str) -> None:
@@ -442,7 +470,8 @@ def write_mix(base: str, n_docs: int, targets, queries, rng, base_seg, label: st
     targets), then searches for the new and the re-inserted docs and some
     old ones: every answer equal to the oracle, every acknowledged write
     read back first, deleted docs gone.  Returns (the oracle's segments
-    after the writes, figures)."""
+    after the writes, figures, verify): verify(url, label) repeats those
+    checks against another server of the same index."""
     import numpy as np
     import requests
 
@@ -471,20 +500,24 @@ def write_mix(base: str, n_docs: int, targets, queries, rng, base_seg, label: st
 
     q_new = [make_query(rng, new_h[k]) for k in range(N_NEW)]
     q_old = queries[:10] + [make_query(rng, reins_h[k]) for k in range(5)]
-    answers_new, _, _ = run_searches(base, q_new + q_old)
-    check_answers(q_new + q_old, answers_new, segments, f"{label}: after writes")
-    for k, i in enumerate(new_ids):
-        top = answers_new[k][1]["results"]
-        check(top and top[0]["id"] == int(i), f"{label}: new doc {i} does not read back first: {top[:2]}")
-    for (_, body, _) in answers_new[N_NEW : N_NEW + 10]:
-        check(not any(r["id"] in dels for r in body["results"]), f"{label}: a deleted doc was returned")
-    for i in dels:
-        check(requests.get(f"{base}/main/{i}", timeout=60).status_code == 404, f"{label}: deleted doc {i} still found")
-    for i in list(new_ids[:20]) + reins:
-        check(requests.head(f"{base}/main/{int(i)}", timeout=60).status_code == 200, f"{label}: doc {i} not found")
+
+    def verify(url: str, where: str) -> None:
+        answers_new, _, _ = run_searches(url, q_new + q_old)
+        check_answers(q_new + q_old, answers_new, segments, f"{where}: after writes")
+        for k, i in enumerate(new_ids):
+            top = answers_new[k][1]["results"]
+            check(top and top[0]["id"] == int(i), f"{where}: new doc {i} does not read back first: {top[:2]}")
+        for (_, body, _) in answers_new[N_NEW : N_NEW + 10]:
+            check(not any(r["id"] in dels for r in body["results"]), f"{where}: a deleted doc was returned")
+        for i in dels:
+            check(requests.get(f"{url}/main/{i}", timeout=60).status_code == 404, f"{where}: deleted doc {i} still found")
+        for i in list(new_ids[:20]) + reins:
+            check(requests.head(f"{url}/main/{int(i)}", timeout=60).status_code == 200, f"{where}: doc {i} not found")
+
+    verify(base, label)
     log(f"{label}: {N_NEW} new docs, {len(reins)} re-inserts, {len(dels)} deletes in {writes_s:.2f} s; "
         f"{len(q_new) + len(q_old)} searches equal the oracle; every write reads back; deleted docs gone")
-    return segments, {"writes_s": writes_s, "searches": len(q_new) + len(q_old)}
+    return segments, {"writes_s": writes_s, "searches": len(q_new) + len(q_old)}, verify
 
 
 def hot_hash_groups(base: str, next_id: int, segments, rng, counts, groups, label: str) -> dict:
@@ -632,7 +665,7 @@ def phase2_serving(n_docs: int, n_requests: int, native_built, base_seg):
             f"target ranked first in {hits}/{n_requests}; batches {stats['read_branches']}")
 
         # ---- writes over HTTP, then docs that share one hot hash ----
-        segments, stats["writes"] = write_mix(base, n_docs, targets, queries, rng, base_seg, "phase2")
+        segments, stats["writes"], _ = write_mix(base, n_docs, targets, queries, rng, base_seg, "phase2")
         mem_view = index.ensure_views(index.acquire_reader()).mem_view
         mem_cap = int(mem_view["hashes"].shape[0]) if "hashes" in mem_view else None
         check(mem_cap is not None and mem_cap > 4096, f"memory tier cap {mem_cap}: not on the resident path")
@@ -816,7 +849,7 @@ def phase2c_mesh(handoff, n_docs: int, native_built, base_seg):
                 f"phase 2's single-path bodies")
 
         rng = np.random.default_rng(8)
-        segments, stats["writes"] = write_mix(base, n_docs, handoff["targets"], queries, rng, base_seg, "phase2c")
+        segments, stats["writes"], _ = write_mix(base, n_docs, handoff["targets"], queries, rng, base_seg, "phase2c")
         stats.update(hot_hash_groups(
             base, n_docs + 1 + N_NEW, segments, rng,
             lambda: {k: sh.STATS[k] for k in ("direct_wide", "direct_narrow", "small", "full")},
@@ -847,6 +880,297 @@ def phase2c_mesh(handoff, n_docs: int, native_built, base_seg):
         dryrun_multichip(MESH_SHARDS)
     stats["dryrun_s"] = time.perf_counter() - t1
     log(f"phase2c: {out.getvalue().strip()} ({stats['dryrun_s']:.1f} s)")
+    return stats
+
+
+# ---------------------------------------------------------------- phase 2d
+
+
+def announced(proc, words, timeout: float, what: str) -> dict:
+    """The ports a CLI process prints as `<WORD> <port>` lines, one per
+    word.  A thread reads them: two lines can arrive in one read, and the
+    second then waits in the pipe's buffer, where select() never sees it."""
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    ports, deadline = {}, time.time() + timeout
+    while len(ports) < len(words):
+        left = deadline - time.time()
+        check(left > 0 and proc.poll() is None, f"{what} announced only {ports} (rc {proc.poll()})")
+        try:
+            word, _, port = lines.get(timeout=min(left, 1.0)).partition(" ")
+        except queue.Empty:
+            continue
+        if word in words:
+            ports[word] = int(port)
+    return ports
+
+
+def start_coordinator(cdir: str, port: int = 0):
+    """`python -m acoustid_index_tpu_torch.main --coordinator --coordinator-dir
+    cdir` (the durable FileCoordinator) in a subprocess; returns (process,
+    its port) once it announces `LISTENING <port>`."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "acoustid_index_tpu_torch.main", "--coordinator", "--coordinator-dir", cdir,
+         "--host", "127.0.0.1", "--port", str(port)],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
+    )
+    try:
+        return proc, announced(proc, ("LISTENING",), 60, "the coordinator")["LISTENING"]
+    except SystemExit:
+        proc.kill()
+        proc.wait()
+        raise
+
+
+def wait_for(fn, timeout: float, what: str, poll: float = 0.01):
+    """Poll fn() until it returns a truthy value; that value, or fail."""
+    import requests
+
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            got = fn()
+            if got:
+                return got
+        except requests.RequestException:
+            pass
+        if time.perf_counter() > deadline:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(poll)
+
+
+def status(url: str) -> dict:
+    import requests
+
+    r = requests.get(f"{url}/main/_status", timeout=60)
+    check(r.status_code == 200, f"{url}/main/_status: HTTP {r.status_code} {r.text[:200]}")
+    return r.json()
+
+
+def check_launches(launches: dict, label: str) -> None:
+    """K1 and K2 launched, the scanning designs never."""
+    for k in ("block_count", "block_count_emit"):
+        check(launches[k] > 0, f"{label}: {k} never launched")
+    for k in ("block_count_scan", "block_count_emit_scan"):
+        check(launches[k] == 0, f"{label}: {k} launched {launches[k]} times")
+
+
+def search_round(url: str, queries, segments, label: str, stats: dict):
+    """The queries from THREADS clients with the launch counters from 0:
+    every answer equal to the oracle; figures into stats[label]; returns
+    the raw bodies."""
+    import numpy as np
+
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+
+    for k in bl.LAUNCHES:
+        bl.LAUNCHES[k] = 0
+    answers, wall, lat = run_searches(url, queries)
+    launches = dict(bl.LAUNCHES)
+    check_answers(queries, answers, segments, label)
+    check_launches(launches, label)
+    p50, p99 = (float(np.percentile(lat, p)) * 1e3 for p in (50, 99))
+    stats[label] = {"searches": len(queries), "wall_s": wall, "qps": len(queries) / wall, "latency_p50_ms": p50,
+                    "latency_p99_ms": p99, "launches": launches}
+    log(f"phase2d: {label}: {len(queries)} searches from {THREADS} threads in {wall:.3f} s = {len(queries) / wall:.1f} qps "
+        f"(wall clock), latency p50 {p50:.2f} ms p99 {p99:.2f} ms; all equal the oracle; launches {launches}")
+    return [a[2] for a in answers]
+
+
+def on_card(mi, label: str, dev) -> dict:
+    """The replica's tiers live on the card; returns its index's merge counts."""
+    ref = mi._get_ref("main")
+    index = ref.index
+    mi._release_ref(ref)
+    snap = index.ensure_views(index.acquire_reader())
+    for tier, view in (("file", snap.file_view), ("memory", snap.mem_view)):
+        table = view.get("inter", view.get("hashes"))
+        check(table is not None and table.device.type == dev.type, f"{label}: its {tier} tier is on {getattr(table, 'device', None)}")
+    return {"file_segments": len(snap.file), "memory_segments": len(snap.memory), "merges": index.merge_counts.as_dict()}
+
+
+def phase2d_replicas(dev, n_docs: int, entry_docs: int, n_requests: int):
+    """The replicated deployment: a durable coordinator through the CLI, and
+    replicas A and B through build_server in this process.  The corpus goes
+    in as _update entries through A; after a retention truncation, B
+    bootstraps from A's snapshot; both answer the queries as the oracle does,
+    B's bodies byte-equal to A's; B takes the write mix, which reads back
+    on B at once and on A by its applied watermark; the coordinator survives
+    a SIGKILL."""
+    import msgpack
+    import numpy as np
+    import requests
+
+    from acoustid_index_tpu_torch import main as cli
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, doc_hashes, make_query, sorted_corpus
+    from oracle import OracleSegment
+
+    t_phase = time.perf_counter()
+    stats = {"docs": n_docs, "postings": n_docs * HASHES_PER_DOC, "entry_docs": entry_docs,
+             "checkpoint_threshold": REPLICA_CHECKPOINT}
+    log(f"phase2d: docs={n_docs} ({n_docs * HASHES_PER_DOC} postings) through the changelog in entries of {entry_docs}; "
+        f"cut from the bench's 10M because every doc crosses the host's change path (decode, the coordinator's "
+        f"append, the consumer's reads, a commit that repacks the memory tier) at ~13-17 s per 100K docs: 10M "
+        f"would outlast the smoke's time limit")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    cdir = os.path.join(tmp, "coordinator")
+    coord, cport = start_coordinator(cdir)
+    curl = f"http://127.0.0.1:{cport}"
+    replicas = {}
+
+    def replica(name: str, peers=()):
+        argv = ["--dir", os.path.join(tmp, name), "--host", "127.0.0.1", "--port", "0", "--coordinator-url", curl,
+                "--checkpoint-threshold", str(REPLICA_CHECKPOINT), "--checkpoint-age-ms", "0"]
+        if peers:
+            argv += ["--peers", ",".join(peers)]
+        served = cli.build_server(cli.build_parser().parse_args(argv))
+        served[0].serve_background()
+        replicas[name] = served
+        return served[1], f"http://127.0.0.1:{served[0].port}"
+
+    try:
+        mi_a, a = replica("a")
+        check(requests.put(f"{a}/main", timeout=60).status_code == 200, "phase2d: PUT /main on A failed")
+
+        # ---- the corpus through the changelog: _update entries on A ----
+        entries = []
+        for lo in range(1, n_docs + 1, entry_docs):
+            ids = np.arange(lo, min(lo + entry_docs, n_docs + 1), dtype=np.uint32)
+            h = doc_hashes(ids).tolist()
+            body = msgpack.packb({"c": [{"i": {"i": int(i), "h": h[k]}} for k, i in enumerate(ids.tolist())]})
+            check(len(body) < 16 * 1024 * 1024, f"phase2d: an entry of {len(ids)} docs is {len(body)} bytes")
+            t1 = time.perf_counter()
+            r = requests.post(f"{a}/main/_update", data=body, timeout=120,
+                              headers={"Content-Type": "application/vnd.msgpack", "Accept": "application/json"})
+            dt = time.perf_counter() - t1
+            check(r.status_code == 200, f"phase2d: _update of docs {lo}.. on A: HTTP {r.status_code} {r.text[:300]}")
+            entries.append({"docs_before": lo - 1, "docs": len(ids), "bytes": len(body), "apply_s": dt,
+                            "version": r.json()["version"]})
+            log(f"phase2d: entry of {len(ids)} docs ({len(body)} bytes) over {lo - 1} stored: acknowledged by A "
+                f"(appended and applied) in {dt:.3f} s")
+        stats["entries"] = entries
+        stats["write_s"] = sum(e["apply_s"] for e in entries)
+        head = entries[-1]["version"]
+        st_a = status(a)
+        check(st_a["version"] >= head, f"phase2d: A's version {st_a['version']} < its acknowledged {head}")
+        stats["a_after_writes"] = on_card(mi_a, "A", dev)
+        merges = stats["a_after_writes"]["merges"]
+        log(f"phase2d: {n_docs} docs ({n_docs * HASHES_PER_DOC} postings) in {len(entries)} entries in "
+            f"{stats['write_s']:.1f} s; A {stats['a_after_writes']}, file_version {st_a['file_version']}")
+        check(merges["device"] >= 1 and merges["fallback"] == 0, f"phase2d: A's checkpoints did not merge on the card: {merges}")
+
+        # ---- A answers the queries ----
+        t1 = time.perf_counter()
+        base_seg = BaseSegment(*sorted_corpus(n_docs, dev), n_docs)
+        stats["oracle_sort_s"] = time.perf_counter() - t1
+        rng = np.random.default_rng(9)
+        targets = rng.integers(1, n_docs + 1, n_requests, dtype=np.uint32)
+        th = doc_hashes(targets)
+        queries = [make_query(rng, th[i]) for i in range(n_requests)]
+        bodies_a = search_round(a, queries, [base_seg], "A", stats)
+
+        # ---- truncate below the head; B bootstraps from A's snapshot ----
+        floor = st_a["file_version"]
+        check(0 < floor < head, f"phase2d: A's file_version {floor} is not below the head {head}")
+        r = requests.post(f"{curl}/_truncate/main/{st_a['generation']}", params={"floor": floor}, timeout=60)
+        check(r.status_code == 200, f"phase2d: truncate: HTTP {r.status_code} {r.text[:200]}")
+        seen = set()
+
+        def bootstrap():
+            t1 = time.perf_counter()
+            mi_b, b = replica("b", peers=[a])
+
+            def caught_up():
+                r = requests.post(f"{b}/main/_search", json={"query": queries[0], **QUERY_OPTS}, timeout=60)
+                h = requests.get(f"{b}/main/_health", timeout=60)
+                seen.add((r.status_code, h.status_code, h.text.strip()[:16]))
+                return r.status_code == 200 and h.status_code == 200 and status(b)["version"] >= head
+
+            wait_for(caught_up, 600, "B to bootstrap and catch up", poll=0.05)
+            return mi_b, b, time.perf_counter() - t1
+
+        (mi_b, b, stats["bootstrap_s"]), spans, _ = profiled(bootstrap)
+        stats["bootstrap_spans_ms"] = {k: v for k, v in spans.items() if k.startswith(("bootstrap.", "tier.", "card:"))}
+        stats["bootstrap_seen"] = sorted(map(list, seen))
+        st_b = status(b)
+        stats["b_after_bootstrap"] = on_card(mi_b, "B", dev)
+        check(stats["b_after_bootstrap"]["file_segments"] >= 1 and "bootstrap.transfer" in spans,
+              f"phase2d: B did not install a snapshot: {stats['b_after_bootstrap']}, spans {sorted(spans)}")
+        log(f"phase2d: truncated the changelog below {floor} (head {head}); B bootstrapped from A's snapshot and "
+            f"caught up to {st_b['version']} in {stats['bootstrap_s']:.3f} s (under the profiler); spans, ms: "
+            + json.dumps({k: round(v, 3) for k, v in sorted(stats["bootstrap_spans_ms"].items())})
+            + f"; B's answers while it filled {stats['bootstrap_seen']}; B {stats['b_after_bootstrap']}")
+        bodies_b = search_round(b, queries, [base_seg], "B", stats)
+        same = sum(x == y for x, y in zip(bodies_a, bodies_b))
+        check(same == len(queries), f"phase2d: {same}/{len(queries)} of B's bodies byte-equal to A's")
+        log(f"phase2d: all {len(queries)} of B's bodies byte-equal to A's")
+
+        # ---- the write mix through B: read-your-writes on B, then on A ----
+        segments, stats["writes"], verify = write_mix(b, n_docs, targets, queries, rng, base_seg, "phase2d B")
+        v_b = status(b)["version"]
+        t1 = time.perf_counter()
+        wait_for(lambda: status(a)["version"] >= v_b, 120, "A to apply B's writes")
+        stats["a_watermark_wait_s"] = time.perf_counter() - t1
+        verify(a, "phase2d A")
+        log(f"phase2d: A applied B's writes (version {v_b}) {stats['a_watermark_wait_s']:.3f} s after B's checks; "
+            f"every write reads back on A, deleted docs gone")
+
+        # Replica lag: single writes through B, each from B's acknowledgement
+        # to the doc's visibility on A.
+        lag_ids = np.arange(n_docs + 5001, n_docs + 5001 + REPLICA_LAG_WRITES, dtype=np.uint32)
+        lag_h = doc_hashes(lag_ids)
+        lags = []
+        for k, i in enumerate(lag_ids.tolist()):
+            r = requests.put(f"{b}/main/{i}", json={"hashes": lag_h[k].tolist()}, timeout=60)
+            t_ack = time.perf_counter()
+            check(r.status_code == 200, f"phase2d: PUT through B: HTTP {r.status_code} {r.text[:200]}")
+            wait_for(lambda: requests.head(f"{a}/main/{i}", timeout=60).status_code == 200, 60, f"doc {i} on A", poll=0.001)
+            lags.append(time.perf_counter() - t_ack)
+        segments.append(OracleSegment([(h, d) for d, hs in zip(lag_ids.tolist(), lag_h.tolist()) for h in hs],
+                                      {d: True for d in lag_ids.tolist()}))
+        stats["lag_s"] = lags
+        log(f"phase2d: replica lag, B's acknowledgement to visibility on A, {len(lags)} writes: median "
+            f"{float(np.median(lags)) * 1e3:.1f} ms, max {max(lags) * 1e3:.1f} ms")
+
+        # ---- the coordinator survives a SIGKILL ----
+        head_before = status(a)["version"]
+        gen = status(a)["generation"]
+        coord.kill()
+        coord.wait()
+        t1 = time.perf_counter()
+        coord, _ = start_coordinator(cdir, cport)
+        stats["coordinator_restart_s"] = time.perf_counter() - t1
+        last_id = n_docs + 9001
+        last_h = doc_hashes(np.array([last_id], np.uint32))[0].tolist()
+        wait_for(lambda: requests.put(f"{a}/main/{last_id}", json={"hashes": last_h}, timeout=60).status_code == 200,
+                 60, "a write through A after the restart", poll=0.2)
+        v_last = status(a)["version"]
+        check(v_last > head_before and status(a)["generation"] == gen,
+              f"phase2d: after the restart A is at version {v_last} (was {head_before}), generation {status(a)['generation']} ({gen})")
+        segments.append(OracleSegment([(h, last_id) for h in last_h], {last_id: True}))
+        wait_for(lambda: status(b)["version"] >= v_last, 60, "B to apply the write after the restart")
+        q_last = [make_query(rng, np.asarray(last_h, np.uint32))] + [make_query(rng, lag_h[k]) for k in range(len(lag_ids))]
+        for label, url in (("A", a), ("B", b)):
+            answers, _, _ = run_searches(url, q_last + queries[:64])
+            check_answers(q_last + queries[:64], answers, segments, f"phase2d {label} after the coordinator restart")
+            check(answers[0][1]["results"][:1] and answers[0][1]["results"][0]["id"] == last_id,
+                  f"phase2d: {label} does not rank the write after the restart first")
+        log(f"phase2d: coordinator SIGKILLed and restarted on its directory in {stats['coordinator_restart_s']:.2f} s; "
+            f"a write through A (version {v_last} > {head_before}, generation {gen}) reads back on A and B, and "
+            f"{len(q_last) + 64} searches on each equal the oracle")
+        stats["merges"] = {"A": on_card(mi_a, "A", dev)["merges"], "B": on_card(mi_b, "B", dev)["merges"]}
+        for name, m in stats["merges"].items():
+            check(m["fallback"] == 0, f"phase2d: a merge on {name} fell back to the host: {m}")
+    finally:
+        for served in replicas.values():
+            cli.stop_server(*served)
+        if coord.poll() is None:
+            coord.kill()
+            coord.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase2d: done in {stats['phase_s']:.1f} s")
     return stats
 
 
@@ -980,22 +1304,9 @@ def phase3_cli():
          "--legacy-port", str(legacy_port), "--mesh-shards", str(CLI_SHARDS), "--profile-port", "-1"],
         cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env,
     )
-    # A thread reads the announcements: both lines can arrive in one read,
-    # and the second then waits in the pipe's buffer, where select() never
-    # sees it.
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
     try:
-        ports, deadline = {}, time.time() + 180
-        while len(ports) < 3:  # LISTENING <http port>, SEARCHPLANE <native port>, PROFILER <capture port>
-            left = deadline - time.time()
-            check(left > 0 and proc.poll() is None, f"CLI server announced only {ports}")
-            try:
-                word, _, port = lines.get(timeout=min(left, 1.0)).partition(" ")
-            except queue.Empty:
-                continue
-            if word in ("LISTENING", "SEARCHPLANE", "PROFILER"):
-                ports[word] = int(port)
+        # LISTENING <http port>, SEARCHPLANE <native port>, PROFILER <capture port>
+        ports = announced(proc, ("LISTENING", "SEARCHPLANE", "PROFILER"), 180, "the CLI server")
         base = f"http://127.0.0.1:{ports['LISTENING']}"
         check(requests.put(f"{base}/cli", timeout=60).status_code == 200, "CLI: PUT index failed")
         check(requests.put(f"{base}/cli/9", json={"hashes": [11, 22, 33, 44]}, timeout=60).status_code == 200, "CLI: PUT doc failed")
@@ -1163,6 +1474,7 @@ def main() -> int:
     serving["oracle_sort_s"] = oracle_sort_s
     mesh = phase2c_mesh(handoff, N_DOCS, native_built, base_seg)
     del handoff
+    replica = phase2d_replicas(dev, REPLICA_DOCS, REPLICA_ENTRY_DOCS, N_REQUESTS)
     model = phase2b_model(dev, N_DOCS, base_seg)
     del base_seg
     paths = (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"]),
@@ -1179,7 +1491,7 @@ def main() -> int:
 
     total = time.perf_counter() - t_start
     detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase2": serving, "phase2c": mesh,
-              "phase2b": model, "phase3": cli_stats, "total_s": total, "nvidia_smi": smi}
+              "phase2d": replica, "phase2b": model, "phase3": cli_stats, "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1188,7 +1500,9 @@ def main() -> int:
 
     def launches(name):
         return {"python_http": serving["launches"][name], "native_front": serving["native"]["launches"][name],
-                "mesh_serving": mesh["launches"][name], "model_forward": model["launches"][name],
+                "mesh_serving": mesh["launches"][name],
+                "replica": replica["A"]["launches"][name] + replica["B"]["launches"][name],
+                "model_forward": model["launches"][name],
                 "probes": probe_launches[name]}
 
     def of(kernel):

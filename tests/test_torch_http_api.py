@@ -1,0 +1,9 @@
+"""The cases of tests/test_http_api.py, run against the port on the CPU: the
+reference file's own source with its imports renamed to the port's modules
+(test_torch_refcases.load)."""
+
+from test_torch_refcases import load
+
+LEFT_OUT: dict[str, str] = {}
+
+load("test_http_api", globals(), LEFT_OUT)
