@@ -20,21 +20,13 @@
 // q[j] in block blk0[j] and, when blk1[j] > 0, in block blk1[j] too (blk1
 // == 0 disables the second block: a real second block is blk0 + 1 >= 1);
 // lt and eq are the sums.  `stride` 2 reads the hash half of interleaved
-// blocks.  Like K1 it searches each block (one thread per lookup, a
-// branch-free binary search to each bound), so each block must be
-// non-decreasing as u32; every probe table is (arange, sorted random,
-// sentinel padding).  The two blocks' four chains of eleven dependent loads
-// run interleaved in one loop; a disabled second block searches blk0 again
-// (the lines it reads are the ones just read) and is masked.  VARIANT is
-// _probe_floor.py:30-48's bisection of the per-lookup cost: FULL the
-// window, ONEBLOCK blk0 only, NOREDUCE comp = (blk0's first hash < q),
-// EMPTY comp = j % g (no table read).  Bound: the sectors at each bound of
-// each enabled block, plus 12 B in and 4 B out per lookup; the
-// dependent-load chain, not bytes, is what it costs.
+// blocks.  VARIANT is _probe_floor.py:30-48's bisection of the per-lookup
+// cost: FULL the window, ONEBLOCK blk0 only, NOREDUCE comp = (blk0's first
+// hash < q), EMPTY comp = j % g (no table read).
 //
 // K4 block_count_emit_docids (replaces probes/_probe_fused.py:76-119
 // fused_call and the docid modes of probes/_probe_fused2.py:32-108
-// make_kernel): K2's search over a table of hash/docid blocks, plus E
+// make_kernel): the search over a table of hash/docid blocks, plus E
 // docid scalars per lookup: comp[j] = lt + (eq << 12) and d[e][j] =
 // docids[lt + e] for lt + e < BLOCK, else 0 (the one-hot extraction of
 // _probe_fused.py:101-102 and _probe_fused2.py:77-79).  R is the
@@ -43,9 +35,41 @@
 // probes' row-major (16, 128) tile), R = 128 _probe_fused2's lane-major
 // (8, 256) tile.  MODE SLICE is _probe_fused2.py:80-87's row-slice
 // extraction: it reads docid row min(p >> 7, 7), lane p & 127, so for p =
-// lt + e >= 1024 it gives docids[896 + (p & 127)] instead of 0.  It writes
-// 4 * (1 + E) bytes per lookup where K2 writes 1 KB: bound by the sectors
-// at its two bounds plus those holding the E docids, and that output.
+// lt + e >= 1024 it gives docids[896 + (p & 127)] instead of 0.
+//
+// What bounds K3 and K4 on this card.  Not the bytes they need: the
+// sectors at each bound and 12-16 B of I/O per lookup take ~0.0007-0.001 ms
+// at 3.35 TB/s, below the ~0.002 ms of any launch at 32,768 lookups
+// (_probe_floor's EMPTY).  Each lookup's block is a cold 4 KB somewhere in a
+// 1-2 GiB table, and the search's pivots are scattered 32-byte sectors of
+// it.  The first design (one thread per lookup, a binary search to each
+// bound: 11 dependent 4-byte loads per bound, K4 one more round for its
+// docids; now "thread11" in csrc/probe_lookup_designs.cu) was taken to be
+// bound by that chain of round trips.  Timing the sector search at arities
+// 2, 4 and 8 beside it (measure.py, the probes' shapes, cold; PERF.md)
+// showed otherwise: the time follows the distinct sectors a call reads
+// (about 0.75 us more per further MB of scattered sectors, ~1.3 TB/s) far
+// more than its dependent rounds (~0.2 us a round).  The 8-ary search (4
+// rounds, 16 sectors per bound) ran 1.5x slower than thread11, the 4-ary
+// (5 rounds, 11 sectors) 1.1x slower.  A binary search over the sectors
+// reads the fewest: 7 pivots, each the first hash of a sector, and the
+// last pivot below the bound names the bound's sector, already fetched.
+//
+// So K3 and K4 (csrc/sector_search.cuh) take ARITY 2: one thread per
+// lookup -- the cooperative 8- and 32-lane designs of
+// csrc/block_lookup_designs.cu lost on the cold tier -- descends over the first hashes of the block's 128 sectors, one
+// pivot per bound and round (lt's and ub's shared until a run equal to q
+// straddles one), then loads the bound's sector as two 16-byte loads
+// (ld.global.nc.v4.u32) and counts it in registers: 8 dependent rounds
+// instead of 11, the same sectors as thread11.  K3 runs both blocks'
+// descents in the same rounds, a disabled second block's loads predicated
+// off.  K4 loads docid sector s with the last hash sector s (it holds
+// docids[lt .. lt + 7], since lt is in 8s .. 8s + 8) and, LAZY, the first
+// half of sector s + 1 one round later only where lt + E - 1 reaches it:
+// no docid round for most lookups and no sector read that is not needed.
+// Measured cold, both beat thread11 by 2-3 % at every probe shape; the
+// 4- and 8-ary designs stay in the designs library, timed beside.
+// K4 writes 4 * (1 + E) bytes per lookup where K2 writes 1 KB.
 //
 // K5 block_count_staged (replaces the explicit-DMA probes, each of which
 // computes the composite:
@@ -75,134 +99,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sector_search.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int BLOCK = 1024;  // hashes per block
-constexpr int THREADS = 256;
 constexpr int SMEM_LIMIT = 232448;  // 227 KB: the dynamic shared memory one CTA may use
-
-__device__ __forceinline__ int64_t clamp_blk(int64_t b, int64_t nblk) {
-  return b < 0 ? 0 : (b >= nblk ? nblk - 1 : b);
-}
-
-// Hash i of a block whose hashes are contiguous.
-struct Flat {
-  const uint32_t* h;
-  __device__ __forceinline__ uint32_t operator()(unsigned i) const { return __ldg(h + i); }
-};
-
-// Hash i (or, with OFF = R, docid i) of a block of alternating R-word runs.
-template <int R, int OFF>
-struct Split {
-  const uint32_t* b;
-  __device__ __forceinline__ uint32_t operator()(unsigned i) const {
-    return __ldg(b + (i / R) * (2 * R) + OFF + (i % R));
-  }
-};
-
-// Lower bound `lt` (#entries < q) and upper bound `ub` (#entries <= q) of q
-// in one sorted block: block_lookup.cu's thread_search over a loader.
-template <class A>
-__device__ __forceinline__ void search(const A& at, uint32_t q, unsigned* lt, unsigned* ub) {
-  unsigned l = 0, u = 0;
-#pragma unroll
-  for (unsigned half = BLOCK / 2; half > 0; half >>= 1) {
-    l += at(l + half - 1) < q ? half : 0;
-    u += at(u + half - 1) <= q ? half : 0;
-  }
-  *lt = l + (at(l) < q);
-  *ub = u + (at(u) <= q);
-}
-
-// The same for two blocks at once: four independent chains in one loop.
-__device__ __forceinline__ void search2(const Flat& a, const Flat& b, uint32_t q,
-                                        unsigned* lt0, unsigned* ub0,
-                                        unsigned* lt1, unsigned* ub1) {
-  unsigned l0 = 0, u0 = 0, l1 = 0, u1 = 0;
-#pragma unroll
-  for (unsigned half = BLOCK / 2; half > 0; half >>= 1) {
-    l0 += a(l0 + half - 1) < q ? half : 0;
-    u0 += a(u0 + half - 1) <= q ? half : 0;
-    l1 += b(l1 + half - 1) < q ? half : 0;
-    u1 += b(u1 + half - 1) <= q ? half : 0;
-  }
-  *lt0 = l0 + (a(l0) < q);
-  *ub0 = u0 + (a(u0) <= q);
-  *lt1 = l1 + (b(l1) < q);
-  *ub1 = u1 + (b(u1) <= q);
-}
-
-// ---- K3 ----
-
-enum PairVariant { PAIR_FULL = 0, PAIR_ONEBLOCK = 1, PAIR_NOREDUCE = 2, PAIR_EMPTY = 3 };
-
-template <int VARIANT>
-__global__ void __launch_bounds__(THREADS)
-block_count_pair_kernel(const uint32_t* __restrict__ table,
-                        const int32_t* __restrict__ blk0,
-                        const int32_t* __restrict__ blk1,
-                        const uint32_t* __restrict__ q,
-                        int32_t* __restrict__ comp,
-                        int64_t L, int64_t nblk, int stride, int g) {
-  const int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (j >= L) return;
-  unsigned lt = 0, eq = 0;
-  if (VARIANT == PAIR_EMPTY) {
-    lt = (unsigned)(j % g);
-  } else {
-    const uint32_t qj = q[j];
-    const Flat h0{table + clamp_blk(blk0[j], nblk) * stride * BLOCK};
-    if (VARIANT == PAIR_NOREDUCE) {
-      lt = h0(0) < qj;
-    } else if (VARIANT == PAIR_ONEBLOCK) {
-      unsigned ub;
-      search(h0, qj, &lt, &ub);
-      eq = ub - lt;
-    } else {
-      const int32_t b1 = blk1[j];
-      const unsigned on = b1 > 0;
-      const Flat h1{on ? table + clamp_blk(b1, nblk) * stride * BLOCK : h0.h};
-      unsigned l0, u0, l1, u1;
-      search2(h0, h1, qj, &l0, &u0, &l1, &u1);
-      lt = l0 + on * l1;
-      eq = (u0 - l0) + on * (u1 - l1);
-    }
-  }
-  comp[j] = (int32_t)(lt + (eq << 12));
-}
-
-// ---- K4 ----
-
-enum EmitMode { EMIT_ONEHOT = 0, EMIT_SLICE = 1 };
-
-template <int E, int R, int MODE>
-__global__ void __launch_bounds__(THREADS)
-block_count_emit_docids_kernel(const uint32_t* __restrict__ inter,
-                               const int32_t* __restrict__ blk,
-                               const uint32_t* __restrict__ q,
-                               int32_t* __restrict__ comp,
-                               uint32_t* __restrict__ d,
-                               int64_t L, int64_t nblk) {
-  const int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (j >= L) return;
-  const uint32_t* base = inter + clamp_blk(blk[j], nblk) * 2 * BLOCK;
-  unsigned lt, ub;
-  search(Split<R, 0>{base}, q[j], &lt, &ub);
-  comp[j] = (int32_t)(lt + ((ub - lt) << 12));
-  const Split<R, R> docid{base};
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const unsigned p = lt + e;
-    uint32_t v = 0;
-    if (MODE == EMIT_SLICE) {
-      v = docid(min(p >> 7, (unsigned)(BLOCK / 128 - 1)) * 128 + (p & 127));
-    } else if (p < BLOCK) {
-      v = docid(p);
-    }
-    d[e * L + j] = v;  // row e of the (E, L) output: coalesced per e
-  }
-}
+constexpr int ARITY = 2;  // pivots per sector-search round + 1 (ops/probe_lookup.py SECTOR_ARITY)
+constexpr bool LAZY = true;  // K4 loads its second docid sector only where needed (SECTOR_LAZY)
 
 // ---- K5 ----
 
@@ -324,38 +228,6 @@ block_count_staged_kernel(const uint32_t* __restrict__ table,
   }
 }
 
-inline unsigned grid_for(int64_t L, int per_cta) {
-  return (unsigned)((L + per_cta - 1) / per_cta);
-}
-
-template <int VARIANT>
-int launch_pair(const void* table, const void* blk0, const void* blk1, const void* q, void* comp,
-                long long L, long long nblk, int stride, int g, cudaStream_t st) {
-  block_count_pair_kernel<VARIANT><<<grid_for(L, THREADS), THREADS, 0, st>>>(
-      (const uint32_t*)table, (const int32_t*)blk0, (const int32_t*)blk1, (const uint32_t*)q,
-      (int32_t*)comp, (int64_t)L, (int64_t)nblk, stride, g);
-  return (int)cudaGetLastError();
-}
-
-template <int E, int R, int MODE>
-int launch_emit(const void* inter, const void* blk, const void* q, void* comp, void* d,
-                long long L, long long nblk, cudaStream_t st) {
-  block_count_emit_docids_kernel<E, R, MODE><<<grid_for(L, THREADS), THREADS, 0, st>>>(
-      (const uint32_t*)inter, (const int32_t*)blk, (const uint32_t*)q, (int32_t*)comp,
-      (uint32_t*)d, (int64_t)L, (int64_t)nblk);
-  return (int)cudaGetLastError();
-}
-
-template <int E>
-int launch_emit_e(const void* inter, const void* blk, const void* q, void* comp, void* d,
-                  long long L, long long nblk, int r, int mode, cudaStream_t st) {
-  if (r == 1024 && mode == EMIT_ONEHOT) return launch_emit<E, 1024, EMIT_ONEHOT>(inter, blk, q, comp, d, L, nblk, st);
-  if (r == 1024 && mode == EMIT_SLICE) return launch_emit<E, 1024, EMIT_SLICE>(inter, blk, q, comp, d, L, nblk, st);
-  if (r == 128 && mode == EMIT_ONEHOT) return launch_emit<E, 128, EMIT_ONEHOT>(inter, blk, q, comp, d, L, nblk, st);
-  if (r == 128 && mode == EMIT_SLICE) return launch_emit<E, 128, EMIT_SLICE>(inter, blk, q, comp, d, L, nblk, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 // Grid of K5: as many CTAs as fit on the card at once (each walks waves),
 // never more than there are waves.  The attribute and occupancy are read
 // once per instantiation.
@@ -398,14 +270,7 @@ int aitpu_block_count_pair(const void* table, const void* blk0, const void* blk1
                            void* comp, long long L, long long nblk, int stride, int variant,
                            int g, void* stream) {
   if (L <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case PAIR_FULL: return launch_pair<PAIR_FULL>(table, blk0, blk1, q, comp, L, nblk, stride, g, st);
-    case PAIR_ONEBLOCK: return launch_pair<PAIR_ONEBLOCK>(table, blk0, blk1, q, comp, L, nblk, stride, g, st);
-    case PAIR_NOREDUCE: return launch_pair<PAIR_NOREDUCE>(table, blk0, blk1, q, comp, L, nblk, stride, g, st);
-    case PAIR_EMPTY: return launch_pair<PAIR_EMPTY>(table, blk0, blk1, q, comp, L, nblk, stride, g, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return sector_pair<ARITY>(table, blk0, blk1, q, comp, L, nblk, stride, variant, g, (cudaStream_t)stream);
 }
 
 // e: 0..4 docids per lookup; r: 1024 or 128; mode: 0 onehot, 1 slice.
@@ -413,15 +278,7 @@ int aitpu_block_count_emit_docids(const void* inter, const void* blk, const void
                                   void* d, long long L, long long nblk, int e, int r, int mode,
                                   void* stream) {
   if (L <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (e) {
-    case 0: return launch_emit_e<0>(inter, blk, q, comp, d, L, nblk, r, mode, st);
-    case 1: return launch_emit_e<1>(inter, blk, q, comp, d, L, nblk, r, mode, st);
-    case 2: return launch_emit_e<2>(inter, blk, q, comp, d, L, nblk, r, mode, st);
-    case 3: return launch_emit_e<3>(inter, blk, q, comp, d, L, nblk, r, mode, st);
-    case 4: return launch_emit_e<4>(inter, blk, q, comp, d, L, nblk, r, mode, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return sector_emit<ARITY, LAZY>(inter, blk, q, comp, d, L, nblk, e, r, mode, (cudaStream_t)stream);
 }
 
 // (g, nbuf): g in {1, 4, 8, 16}, nbuf in {2, 3, 4, 8, 16}, g * nbuf * 4 KB

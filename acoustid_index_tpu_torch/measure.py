@@ -224,6 +224,84 @@ def design_emit(name, inter, blk, q):
     return lt, eq, rows
 
 
+SECTOR_ARITIES = (2, 4, 8)  # the sector designs of csrc/probe_lookup_designs.cu
+# K3's and K4's designs beside the kernels: their first, per-thread binary search
+# and the sector search at every arity (the kernels' own included); K4's
+# also with its second docid sector loaded lazily ("sectorKlazy").
+PAIR_DESIGNS = ("thread11",) + tuple(f"sector{a}" for a in SECTOR_ARITIES)
+EMIT_DESIGNS = PAIR_DESIGNS + tuple(f"sector{a}lazy" for a in SECTOR_ARITIES)
+
+
+def kernel_design(kernel):
+    """The design name of what K3 ("block_count_pair") or K4 launches."""
+    from .ops import probe_lookup as pl
+
+    lazy = "lazy" if kernel == "block_count_emit_docids" and pl.SECTOR_LAZY else ""
+    return f"sector{pl.SECTOR_ARITY}{lazy}"
+
+
+def _design_args(name, designs):
+    """(C entry suffix, extra arguments) of a K3/K4 design name."""
+    if name not in designs:
+        raise ValueError(f"design {name!r} is not one of {designs}")
+    if name == "thread11":
+        return "thread11", ()
+    lazy = name.endswith("lazy")
+    arity = (int(name.removeprefix("sector").removesuffix("lazy")),)
+    return "sector", arity + ((int(lazy),) if designs is EMIT_DESIGNS else ())
+
+
+def design_pair(name, table, blk0, blk1, q, stride=1, variant="full", g=8):
+    """K3's composite by the design `name` of PAIR_DESIGNS
+    (csrc/probe_lookup_designs.cu), which the port does not run; counted in
+    no LAUNCHES."""
+    import torch
+
+    from .ops import _build
+    from .ops import block_lookup as bl
+    from .ops import probe_lookup as pl
+    from .ops.layout import BLOCK
+
+    entry, extra = _design_args(name, PAIR_DESIGNS)
+    blk0, q = bl._cuda_args(table, blk0, q)
+    blk1 = blk1.to(torch.int32).contiguous()
+    L = blk0.shape[0]
+    comp = torch.empty(L, dtype=torch.int32, device=table.device)
+    rc = getattr(_build.library("designs"), "aitpu_design_pair_" + entry)(
+        table.data_ptr(), blk0.data_ptr(), blk1.data_ptr(), q.data_ptr(), comp.data_ptr(),
+        L, table.shape[0] // (stride * BLOCK), stride, pl.PAIR_VARIANTS.index(variant), g, *extra,
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"design_pair {name} launch failed: cudaError {rc}")
+    return comp
+
+
+def design_emit_docids(name, inter, blk, q, E, R=1024, mode="onehot"):
+    """K4's (comp, d) by the design `name` of EMIT_DESIGNS, which the port
+    does not run."""
+    import torch
+
+    from .ops import _build
+    from .ops import block_lookup as bl
+    from .ops import probe_lookup as pl
+    from .ops.layout import BLOCK
+
+    entry, extra = _design_args(name, EMIT_DESIGNS)
+    blk, q = bl._cuda_args(inter, blk, q)
+    L = blk.shape[0]
+    comp = torch.empty(L, dtype=torch.int32, device=inter.device)
+    d = torch.empty((E, L), dtype=torch.int32, device=inter.device)
+    rc = getattr(_build.library("designs"), "aitpu_design_emit_docids_" + entry)(
+        inter.data_ptr(), blk.data_ptr(), q.data_ptr(), comp.data_ptr(), d.data_ptr(),
+        L, inter.shape[0] // (2 * BLOCK), E, R, pl.EMIT_MODES.index(mode), *extra,
+        torch.cuda.current_stream(inter.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(f"design_emit_docids {name} launch failed: cudaError {rc}")
+    return comp, d
+
+
 def _set(table, blk, q64, sorted64=None, spans=None):
     """One input set: the kernels' inputs (int32 blk, int32 bit-pattern q,
     as the range phase hands them), the int64 query values, the
@@ -387,9 +465,10 @@ def phase1_cases(dev, g, designs: bool = False):
 # At the probes' own shapes (acoustid_index_tpu_torch/probes.py builds the
 # tables): L = 32,768 lookups over 2^28-entry (1 GiB) and 2^27-entry
 # interleaved (1 GiB) tables whose hashes are the posting index, as the
-# probes' arange tables.  chip_smoke.py phase 1c runs these cases;
-# `python -m acoustid_index_tpu_torch.probes` runs them beside the probe
-# sites' own cases.
+# probes' arange tables, K3 and K4 beside the designs they did not take
+# (csrc/probe_lookup_designs.cu, library "designs").  chip_smoke.py phase
+# 1c runs these cases; `python -m acoustid_index_tpu_torch.probes` runs
+# them beside the probe sites' own cases.
 
 PROBE_L = 32_768
 
@@ -413,25 +492,43 @@ def probe_queries(hash_of, nblk: int, g, dev, lo: int = 1, L: int = PROBE_L):
     return blk.to(torch.int32), torch.where(kind >= 5, miss, q)
 
 
+def _designs_not_taken(kernel, sets):
+    """The K3/K4 designs timed beside the kernel: PAIR_DESIGNS /
+    EMIT_DESIGNS but the kernel's own, on a card only (they have no CPU
+    version)."""
+    if not sets[0]["inputs"][0].is_cuda:
+        return ()
+    designs = PAIR_DESIGNS if kernel == "block_count_pair" else EMIT_DESIGNS
+    return tuple(d for d in designs if d != kernel_design(kernel))
+
+
 def pair_case(shape, note, stride, sets):
-    """K3's window at one shape; each set carries "blk1".  No yardstick: no
-    single PyTorch call computes the window."""
+    """K3's window at one shape, and on a card the designs it did not take
+    (thread11, the first design; the other sector arities) in the same
+    turns; each set carries "blk1".  No yardstick: no single PyTorch call
+    computes the window."""
     from .ops import probe_lookup as pl
 
     def run(fn):
         return lambda s: fn(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2], stride)
 
-    case = _case("block_count_pair", shape, note, stride, sets, {"new": run(pl.block_count_pair)}, run(pl.block_count_pair_plain))
+    variants = {"new": run(pl.block_count_pair)}
+    for d in _designs_not_taken("block_count_pair", sets):
+        variants[d] = run(lambda *a, d=d: design_pair(d, *a))
+    case = _case("block_count_pair", shape, note, stride, sets, variants, run(pl.block_count_pair_plain))
     case["variant"] = "full"
     return case
 
 
 def emit_docids_case(shape, note, sets, E, R, mode="onehot"):
-    """K4 at one shape: no yardstick (no single PyTorch call computes it)."""
+    """K4 at one shape, beside its designs not taken (as pair_case): no
+    yardstick (no single PyTorch call computes it)."""
     from .ops import probe_lookup as pl
 
-    case = _case("block_count_emit_docids", shape, note, 2, sets,
-                 {"new": lambda s: pl.block_count_emit_docids(*s["inputs"], E, R, mode)},
+    variants = {"new": lambda s: pl.block_count_emit_docids(*s["inputs"], E, R, mode)}
+    for d in _designs_not_taken("block_count_emit_docids", sets):
+        variants[d] = lambda s, d=d: design_emit_docids(d, *s["inputs"], E, R, mode)
+    case = _case("block_count_emit_docids", shape, note, 2, sets, variants,
                  lambda s: pl.block_count_emit_docids_plain(*s["inputs"], E, R, mode))
     case.update(E=E, R=R, mode=mode)
     return case
@@ -458,7 +555,8 @@ def staged_case(shape, note, sets, configs):
 
 
 def probe_kernel_cases(t, g, n_sets: int = QUERY_SETS):
-    """K3, K4 and K5 at one probe shape each, QUERY_SETS input sets:
+    """K3, K4 and K5 at one probe shape each, QUERY_SETS input sets, K3
+    and K4 beside their designs not taken (pair_case, emit_docids_case):
     K3 (window, stride 1 and 2) over _pairkernel's callers' 2^28 table,
     half the lookups with blk1 = blk0 + 1; K4 (E = 2 and 4, R = 1024 and
     128) over _probe_fused's 2^27 interleaved tables; K5 ((G, NBUF) = (8,
@@ -516,6 +614,117 @@ def _bound_sectors(b, at, words_per_block: int):
     return int(torch.unique(((b[:, None] * words_per_block + at) * 4 // 32).reshape(-1)).numel())
 
 
+def search_schedule(design, at, q):
+    """(lt, ub, reads, sector) of q[j] (int64 u32 values) in one sorted
+    block per lookup, as the K3/K4 design `design` of EMIT_DESIGNS
+    searches it (csrc/probe_lookup_designs.cu, csrc/sector_search.cuh).
+    `at(i)` gives the hashes at block-relative positions i (int64, shape
+    (L,) or (L, k)) of each lookup's block.  `reads` (L, n) holds the
+    position of every hash the design loads, a sector's pair of 16-byte
+    loads as its first position, -1 for a load it does not issue (the
+    upper bound's own pivots while both bounds share a base); `sector` is
+    the lower bound's final sector (None for thread11)."""
+    import torch
+
+    from .ops.layout import BLOCK
+
+    zero = torch.zeros_like(q)
+    none = torch.full_like(q, -1)
+    reads = []
+    if design == "thread11":
+        lo, up = zero, zero
+        half = BLOCK // 2
+        while half:
+            pl_, pu = lo + half - 1, up + half - 1
+            reads += [pl_, pu]
+            lo = lo + torch.where(at(pl_) < q, half, 0)
+            up = up + torch.where(at(pu) <= q, half, 0)
+            half //= 2
+        reads += [lo, up]
+        return lo + (at(lo) < q), up + (at(up) <= q), torch.stack(reads, 1), None
+    arity = int(design.removeprefix("sector").removesuffix("lazy"))
+    sector = 8  # u32 hashes per 32-byte sector
+    sl, su = zero, zero
+    size = BLOCK // sector
+    while size > 1:
+        k = min(arity, size)
+        chunk = size // k
+        split = su != sl
+        ml, mu = zero, zero
+        for i in range(1, k):
+            pl_, pu = sector * (sl + chunk * i), sector * (su + chunk * i)
+            xl = at(pl_)
+            ml = ml + (xl < q)
+            mu = mu + (torch.where(split, at(pu), xl) <= q)
+            reads += [pl_, torch.where(split, pu, none)]
+        sl, su, size = sl + chunk * ml, su + chunk * mu, chunk
+    split = su != sl
+    reads += [sector * sl, torch.where(split, sector * su, none)]
+    within = torch.arange(sector, device=q.device)
+    lt = sector * sl + (at(sector * sl[:, None] + within) < q[:, None]).sum(1)
+    ub = sector * su + (at(sector * su[:, None] + within) <= q[:, None]).sum(1)
+    return lt, ub, torch.stack(reads, 1), sl
+
+
+def docid_reads(design, lt, sector, E, mode):
+    """(L, n) block-relative docid positions K4's design `design` loads for
+    E docids at lt + e (-1: none): thread11 each docid it extracts; the
+    sector designs docid sector `sector` and the half sector after it
+    (sector 112's, docids 896.., past the block in "slice"; none in
+    "onehot"), the lazy ones that half only where lt + E - 1 reaches it."""
+    import torch
+
+    from .ops.layout import BLOCK
+
+    if E == 0:
+        return torch.empty((lt.shape[0], 0), dtype=torch.int64, device=lt.device)
+    if design == "thread11":
+        p = lt[:, None] + torch.arange(E, device=lt.device)
+        if mode == "slice":
+            return torch.clamp(p >> 7, max=BLOCK // 128 - 1) * 128 + (p & 127)
+        return torch.where(p < BLOCK, p, -1)
+    past = sector + 1 >= BLOCK // 8
+    nxt = torch.where(past, BLOCK - 128 if mode == "slice" else -1, 8 * (sector + 1))
+    if design.endswith("lazy"):
+        nxt = torch.where(lt - 8 * sector + E - 1 >= 8, nxt, -1)
+    return torch.stack([8 * sector, nxt], 1)
+
+
+def design_sectors(table, b, q, words, R=None, E=0, mode="onehot", chunk=8192):
+    """{design: the distinct 32-byte sectors of `table` (global sector ids)
+    it reads} for lookups of blocks b (int64, clamped) and queries q (int64
+    u32 values): K3's blocks of `words` words whose hashes are the first
+    BLOCK (R None), or K4's 2048-word blocks of R-word runs with E docids."""
+    import torch
+
+    from .ops.layout import BLOCK, u32
+
+    def hword(i):
+        return i if R is None else (i // R) * 2 * R + i % R
+
+    def dword(i):
+        return (i // R) * 2 * R + R + i % R
+
+    hpos = hword(torch.arange(BLOCK, device=b.device))
+    out = {d: [] for d in (PAIR_DESIGNS if R is None else EMIT_DESIGNS)}
+    for s in range(0, b.shape[0], chunk):
+        bb, qq = b[s : s + chunk], q[s : s + chunk]
+        h = u32(table.view(-1, words)[bb][:, hpos])
+
+        def at(i, h=h):
+            return h.gather(1, i.reshape(i.shape[0], -1)).reshape(i.shape)
+
+        for d in out:
+            lt, _, reads, sector = search_schedule(d, at, qq)
+            word = torch.where(reads >= 0, hword(reads.clamp(min=0)), -1)
+            if E:
+                dr = docid_reads(d, lt, sector, E, mode)
+                word = torch.cat([word, torch.where(dr >= 0, dword(dr.clamp(min=0)), -1)], 1)
+            sec = (bb[:, None] * words + word) // 8
+            out[d].append(torch.unique(sec[word >= 0]))
+    return {d: torch.unique(torch.cat(v)) for d, v in out.items()}
+
+
 def kernel_bound(case, s):
     """(needed bytes, scan bytes, compares) of one call on input set `s`:
     each byte the call needs, read once, each output written once.
@@ -531,12 +740,15 @@ def kernel_bound(case, s):
     K1, K1m and K2 write lt and eq (8 B per lookup), K3 and K5 the
     composite (4 B).
     "Scan bytes" is what a scanning design reads: every distinct block's
-    1024 hashes.  The counts come from the plain versions on `s`."""
+    1024 hashes.  The counts come from the plain versions on `s`.
+    K3 (window, one block) and K4 also give "read_bytes": per design of
+    PAIR_DESIGNS / EMIT_DESIGNS, the distinct sectors it loads (search_schedule's loads,
+    the schedule tests/test_torch_probes.py checks), plus the I/O."""
     import torch
 
     from .ops import block_lookup as bl
     from .ops import probe_lookup as pl
-    from .ops.layout import BLOCK
+    from .ops.layout import BLOCK, u32
 
     kernel = case["kernel"]
     table, blk, q = s["inputs"]
@@ -570,14 +782,18 @@ def kernel_bound(case, s):
         if variant == "noreduce":
             return {"needed_bytes": int(torch.unique(b * words * 4 // 32).numel()) * 32 + io, "scan_bytes": scan, "compares": L}
         sectors = [(b, at_bounds(*bl.block_count_plain(table, blk, q, stride)))]
+        read = design_sectors(table, b, u32(q), words)
         if variant == "full":
             on = blk1 > 0
             b1 = blk1[on].clamp(0, nblk - 1)
             sectors.append((b1, at_bounds(*bl.block_count_plain(table, b1, q[on], stride))))
+            read1 = design_sectors(table, b1, u32(q)[on], words)
+            read = {d: torch.unique(torch.cat([v, read1[d]])) for d, v in read.items()}
             io += L * 4
             scan += int(torch.unique(b1).numel()) * BLOCK * 4
         needed = sum(_bound_sectors(bb, at, words) for bb, at in sectors) * 32 + io
-        return {"needed_bytes": needed, "scan_bytes": scan, "compares": sum(bb.shape[0] for bb, _ in sectors) * 2 * 11}
+        return {"needed_bytes": needed, "scan_bytes": scan, "compares": sum(bb.shape[0] for bb, _ in sectors) * 2 * 11,
+                "read_bytes": {d: int(v.numel()) * 32 + io for d, v in read.items()}}
     if kernel == "block_count_emit_docids":
         E, R, mode = case["E"], case["R"], case["mode"]
         comp, _ = pl.block_count_emit_docids_plain(table, blk, q, 0, R)
@@ -591,8 +807,11 @@ def kernel_bound(case, s):
         else:  # words past the block are not read
             p = torch.where(p < BLOCK, p, lt[:, None].clamp(max=BLOCK - 1))
         at = torch.cat([at, (p // R) * 2 * R + R + p % R], 1)
-        needed = _bound_sectors(b, at, words) * 32 + L * 8 + L * 4 * (1 + E)
-        return {"needed_bytes": needed, "scan_bytes": scan - io + L * 8 + L * 4 * (1 + E), "compares": L * 2 * 11}
+        io = L * 8 + L * 4 * (1 + E)
+        needed = _bound_sectors(b, at, words) * 32 + io
+        read = design_sectors(table, b, u32(q), words, R, E, mode)
+        return {"needed_bytes": needed, "scan_bytes": scan - L * 16 + io, "compares": L * 2 * 11,
+                "read_bytes": {d: int(v.numel()) * 32 + io for d, v in read.items()}}
     lt, eq = bl.block_count_plain(table, blk, q, stride)
     needed = _bound_sectors(b, at_bounds(lt, eq), words) * 32 + io
     if kernel == "block_count_emit":
@@ -629,6 +848,8 @@ def check_case(case):
     rec["sets"], rec["max_abs_err"] = len(case["sets"]), err
     for key in ("needed_bytes", "scan_bytes", "compares"):
         rec[key] = sum(n[key] for n in need) / len(need)
+    if "read_bytes" in need[0]:
+        rec["read_bytes"] = {d: sum(n["read_bytes"][d] for n in need) / len(need) for d in need[0]["read_bytes"]}
     t_bytes, t_ops = rec["needed_bytes"] / HBM_BYTES_PER_S * 1e3, rec["compares"] / CUDA_CORE_OPS_PER_S * 1e3
     rec["bound_ms"], rec["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     rec["scan_bound_ms"] = rec["scan_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -683,7 +904,8 @@ def run_case(case, log=print):
         f"{'; '.join(show(k) for k in names)}; plain {rec['plain_ms']:.4f}; bound {rec['bound_ms']:.5f} ms by "
         f"{rec['bound_by']} ({rec['needed_bytes']:.0f} needed bytes; scan bytes {rec['scan_bytes']:.0f} = "
         f"{rec['scan_bound_ms']:.4f} ms) = {100 * rec['bound_ms'] / new:.1f} % of the kernel; "
-        f"clocks/power {smi_rounds[0][0]} .. {smi_rounds[-1][1]}")
+        + (f"read bytes by design {json.dumps({k: round(v) for k, v in rec['read_bytes'].items()})}; " if "read_bytes" in rec else "")
+        + f"clocks/power {smi_rounds[0][0]} .. {smi_rounds[-1][1]}")
     return rec
 
 

@@ -8,10 +8,12 @@ Nothing here runs at import time: the CPU test suite imports every module
 of the port on a machine with no nvcc and no card.
 
 Three libraries: "kernels" (csrc/block_lookup.cu), the kernels the port
-runs; "designs" (csrc/block_lookup_designs.cu), the search designs that
-K1 and K2 did not take, which only measure.py loads to time them;
-"probes" (csrc/probe_lookup.cu), K3-K5, the kernels of the probes'
-contracts that K1 and K2 do not compute (ops/probe_lookup.py).
+runs; "designs" (csrc/block_lookup_designs.cu and
+csrc/probe_lookup_designs.cu), the search designs that K1-K4 did not take,
+which only measure.py loads to time them; "probes" (csrc/probe_lookup.cu),
+K3-K5, the kernels of the probes' contracts that K1 and K2 do not compute
+(ops/probe_lookup.py).  The headers of csrc/ (csrc/sector_search.cuh,
+included by both K3/K4 sources) enter every library's hash.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ _I, _LL = ctypes.c_int, ctypes.c_longlong
 _PAIR = [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]
 _EMIT_DOCIDS = [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P]
 _STAGED = [_P, _P, _P, _P, _LL, _LL, _I, _I, _P]
+_PAIR_ARITY = _PAIR[:-1] + [_I, _P]
+_EMIT_DOCIDS_ARITY = _EMIT_DOCIDS[:-1] + [_I, _I, _P]
 
 # library -> (sources, {C entry: ctypes argument types})
 LIBRARIES = {
@@ -49,10 +53,14 @@ LIBRARIES = {
         "aitpu_block_count_emit": _EMIT,
         "aitpu_block_count_emit_scan": _EMIT,
     }),
-    "designs": (("block_lookup_designs.cu",), {
+    "designs": (("block_lookup_designs.cu", "probe_lookup_designs.cu"), {
         "aitpu_design_count_group8": _COUNT,
         "aitpu_design_emit_group8": _EMIT,
         "aitpu_design_emit_warp32": _EMIT,
+        "aitpu_design_pair_thread11": _PAIR,
+        "aitpu_design_emit_docids_thread11": _EMIT_DOCIDS,
+        "aitpu_design_pair_sector": _PAIR_ARITY,
+        "aitpu_design_emit_docids_sector": _EMIT_DOCIDS_ARITY,
     }),
     "probes": (("probe_lookup.cu",), {
         "aitpu_block_count_pair": _PAIR,
@@ -78,7 +86,8 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in LIBRARIES[name][0]:
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for src in (*LIBRARIES[name][0], *headers):
         with open(os.path.join(_CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libaitpu_{name}-{h.hexdigest()[:16]}.so")

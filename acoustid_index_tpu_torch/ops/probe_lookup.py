@@ -18,7 +18,10 @@ contract, a thin layer over one of five kernels:
                                           lookup_dma_vec2, dma_lookup, lookup_wave_mm
 
 K3-K5 are csrc/probe_lookup.cu (library "probes"), whose source note says
-what each replaces, what bounds it and how it is built.  Each writes the
+what each replaces, what bounds it and how it is built; K3 and K4 search
+each block by its 32-byte sectors (csrc/sector_search.cuh: rounds of
+SECTOR_ARITY - 1 pivot loads, then the bound's sector), K4 fetching its
+docid sector in the search's last round.  Each writes the
 probes' composite lt + (eq << 12) from its own body, as the TPU sites
 did; `counts` takes it apart where a caller wants (lt, eq).  Each wrapper
 takes its plain PyTorch version for tensors on the CPU, and launches its
@@ -53,6 +56,8 @@ EMIT_LAYOUTS = (1024, 128)  # K4: hash/docid interleave granularity R
 STAGED_G = (1, 4, 8, 16)  # K5's templates: those of the fitting (G, NBUF) pairs are built
 STAGED_NBUF = (2, 3, 4, 8, 16)
 SMEM_BYTES = 232_448  # 227 KB: the shared memory one CTA of an H100 may use
+SECTOR_ARITY = 2  # K3's and K4's pivots per round + 1: csrc/probe_lookup.cu's ARITY
+SECTOR_LAZY = True  # K4 loads its second docid sector only where needed: csrc/probe_lookup.cu's LAZY
 
 
 def _lib():

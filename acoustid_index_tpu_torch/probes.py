@@ -135,28 +135,43 @@ def site_cases(t, g, n_sets=m.QUERY_SETS):
     def lib(s):  # the searchsorted yardstick of a one-block composite
         return comp(*m.searchsorted_count(s["sorted64"], s["inputs"][1], s["q64"]))
 
+    # On a card every K3/K4 site also runs its kernel's first design
+    # (measure.design_pair / design_emit_docids "thread11") in the same
+    # turns, through the site's own decoding.
+    pr5 = t["t28"].is_cuda
+
+    def pr5_pair(s, stride=1, variant="full"):
+        return m.design_pair("thread11", s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2], stride, variant, 8)
+
+    def with_pr5(variants, fn):
+        return variants | {"thread11": fn} if pr5 else variants
+
     # K3: _pairkernel (strides 1 and 2), _probe_dma, _probe_smem, _probe_floor.
     for stride, key in ((1, "t28"), (2, "i28")):
         sets = _sets(t[key], b28, g, pair="next", n=n_sets)
         cases.append(_site(case(
             "block_count_pair", f"stride{stride}", stride, sets,
-            {"block_lookup_pair": lambda s, st=stride: pl.block_lookup_pair(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2], st)},
+            with_pr5({"block_lookup_pair": lambda s, st=stride: pl.block_lookup_pair(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2], st)},
+                     lambda s, st=stride: pl.pair_lo(s["inputs"][1], pr5_pair(s, st))),
             lambda s, st=stride: pl.pair_lo(s["inputs"][1], pl.block_count_pair_plain(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2], st)),
             variant="full", g=8), "probes/_pairkernel.py:93", "block_lookup_pair", "K3 full"))
     sets = _sets(t["t28pad"], b28 + 1, g, pair="flag", n=n_sets)
     cases.append(_site(case(
         "block_count_pair", "sentinel", 1, sets,
-        {"block_lookup_pair_dma": lambda s: pl.block_lookup_pair_dma(s["inputs"][0], s["inputs"][1], s["flag"], s["inputs"][2])},
+        with_pr5({"block_lookup_pair_dma": lambda s: pl.block_lookup_pair_dma(s["inputs"][0], s["inputs"][1], s["flag"], s["inputs"][2])},
+                 lambda s: pl.pair_lo(s["inputs"][1], pr5_pair(s | {"blk1": torch.where(s["flag"] > 0, s["inputs"][1] + 1, 0)}))),
         lambda s: pl.pair_lo(s["inputs"][1], pl.block_count_pair_plain(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2])),
         variant="full", g=8), "probes/_probe_dma.py:73", "block_lookup_pair_dma", "K3 full, fixed [b0, b0 + 1]"))
     sets = _sets(t["t28"], b28, g, pair="all", n=n_sets)
     cases.append(_site(case(
         "block_count_pair", "full", 1, sets,
-        {"block_lookup_pair_smem": lambda s: pl.block_lookup_pair_smem(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2])},
+        with_pr5({"block_lookup_pair_smem": lambda s: pl.block_lookup_pair_smem(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2])},
+                 lambda s: pl.pair_lo(s["inputs"][1], pr5_pair(s))),
         lambda s: pl.pair_lo(s["inputs"][1], pl.block_count_pair_plain(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2])),
         variant="full", g=8), "probes/_probe_smem.py:60", "block_lookup_pair_smem", "K3 full"))
     for variant in pl.PAIR_VARIANTS:
-        variants = {f"make_floor({variant})": lambda s, v=variant: pl.make_floor(v, 8)(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2])}
+        variants = with_pr5({f"make_floor({variant})": lambda s, v=variant: pl.make_floor(v, 8)(s["inputs"][0], s["inputs"][1], s["blk1"], s["inputs"][2])},
+                            lambda s, v=variant: pr5_pair(s, 1, v))
         if variant == "oneblock":
             variants["searchsorted"] = lib
         cases.append(_site(case(
@@ -208,17 +223,24 @@ def site_cases(t, g, n_sets=m.QUERY_SETS):
     for E in (2, 4):
         cases.append(_site(case(
             "block_count_emit_docids", f"E{E}", 2, rm_sets,
-            {"fused_call": lambda s, E=E: pl.fused_call(256, E, s["inputs"][0].view(-1, 128), s["inputs"][1], s["inputs"][2])},
+            with_pr5({"fused_call": lambda s, E=E: pl.fused_call(256, E, s["inputs"][0].view(-1, 128), s["inputs"][1], s["inputs"][2])},
+                     lambda s, E=E: (lambda c, d: (c, *d.unbind(0)))(*m.design_emit_docids("thread11", *s["inputs"], E))),
             lambda s, E=E: (lambda c, d: (c, *d.unbind(0)))(*pl.block_count_emit_docids_plain(*s["inputs"], E)),
             E=E, R=1024, mode="onehot"), "probes/_probe_fused.py:115", "fused_call", f"K4 E={E} R=1024 onehot"))
 
-    def fused2_plain(E, R, mode):
-        def plain(s):
-            c, d = pl.block_count_emit_docids_plain(*s["inputs"], E, R, mode)
+    def fused2(emit, E, R, mode):  # make_kernel's comp + d0 + ... over an emit function
+        def run(s):
+            c, d = emit(*s["inputs"], E, R, mode)
             for e in range(E):
                 c = c + d[e]
             return c
-        return plain
+        return run
+
+    def fused2_plain(E, R, mode):
+        return fused2(pl.block_count_emit_docids_plain, E, R, mode)
+
+    def fused2_pr5(E, R, mode):
+        return fused2(lambda *a: m.design_emit_docids("thread11", *a), E, R, mode)
 
     f27 = t["t28"][:n27]
     cases.append(_site(case(
@@ -232,14 +254,16 @@ def site_cases(t, g, n_sets=m.QUERY_SETS):
         lambda s: comp(*bl.block_count_plain(*s["inputs"], 2))), "probes/_probe_fused2.py:98", "make_kernel", "K1 stride 2"))
     cases.append(_site(case(
         "block_count_emit_docids", "lm-E0", 2, lm_sets,
-        {"make_kernel(lm, 0)": lambda s: pl.make_kernel("lm", 0)(s["inputs"][0].view(-1, 256), s["inputs"][1], s["inputs"][2])},
+        with_pr5({"make_kernel(lm, 0)": lambda s: pl.make_kernel("lm", 0)(s["inputs"][0].view(-1, 256), s["inputs"][1], s["inputs"][2])},
+                 fused2_pr5(0, 128, "onehot")),
         fused2_plain(0, 128, "onehot"), E=0, R=128, mode="onehot"), "probes/_probe_fused2.py:98", "make_kernel", "K4 E=0 R=128"))
     for layout, R, sets, width in (("rm", 1024, rm_sets, 128), ("lm", 128, lm_sets, 256)):
         for mode in ("onehot", "slice"):
             for E in (2, 4):
                 cases.append(_site(case(
                     "block_count_emit_docids", f"{layout}-{mode}-E{E}", 2, sets,
-                    {f"make_kernel({layout}, {E}, {mode})": lambda s, a=(layout, E, mode), w=width: pl.make_kernel(*a)(s["inputs"][0].view(-1, w), s["inputs"][1], s["inputs"][2])},
+                    with_pr5({f"make_kernel({layout}, {E}, {mode})": lambda s, a=(layout, E, mode), w=width: pl.make_kernel(*a)(s["inputs"][0].view(-1, w), s["inputs"][1], s["inputs"][2])},
+                             fused2_pr5(E, R, mode)),
                     fused2_plain(E, R, mode), E=E, R=R, mode=mode),
                     "probes/_probe_fused2.py:98", "make_kernel", f"K4 E={E} R={R} {mode}"))
 

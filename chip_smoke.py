@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
      the host libraries (csrc/*.cc: codecs, the native search front, the
-     load generator) start building with g++ in the background, and the two
-     kernel libraries (csrc/block_lookup.cu, csrc/probe_lookup.cu) with
-     nvcc, one process each, all at once.
+     load generator) start building with g++ in the background, and the three
+     kernel libraries (csrc/block_lookup.cu, csrc/probe_lookup.cu, and the
+     designs not taken: csrc/block_lookup_designs.cu with
+     csrc/probe_lookup_designs.cu) with nvcc, one process each, all at once.
   1. kernels: build every kernel of acoustid_index_tpu_torch/csrc (K1
      block_count, K1m block_count_masked, K2 block_count_emit, and K1's and
      K2's first, scanning designs block_count_scan / block_count_emit_scan)
@@ -40,11 +41,14 @@ Phases, each fatal on failure:
      functions once at the probes' shapes (2^26-2^28-entry tables, 32,768
      lookups), each bit-equal to its plain version; K3 block_count_pair, K4
      block_count_emit_docids and K5 block_count_staged (csrc/probe_lookup.cu)
-     must each have launched.  Then each alone at one probe shape
+     must each have launched; K3's and K4's sites also run their kernel's
+     first design (thread11), bit-equal too.  Then each alone at one probe shape
      (measure.probe_kernel_cases): K3's window at strides 1 and 2, K4 at E =
-     2 and 4, R = 1024 and 128, K5 at (G, NBUF) = (8, 4) and (16, 2) beside
-     K1's scan, search and torch.searchsorted; bit-equal to the plain version
-     on every input set, then timed cold and warm as phase 1 times.
+     2 and 4, R = 1024 and 128, each beside the designs it did not take (PR
+     5's thread11, the other sector arities), K5 at (G, NBUF) = (8, 4) and
+     (16, 2) beside K1's scan, search and torch.searchsorted; bit-equal to
+     the plain version on every input set, then timed cold and warm as phase
+     1 times, with the bytes each K3/K4 design reads.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
      to disk through merge_segments_auto (it must take the device merge,
@@ -355,8 +359,10 @@ def phase1c_probes(dev):
 
     t_phase = t0 = time.perf_counter()
     _build.library("probes")
-    log(f"phase1c: probe kernels ready after {time.perf_counter() - t0:.3f} s more "
-        f"(nvcc {_build.build_seconds.get('probes', 'cached')} s, started in phase 0)")
+    _build.library("designs")
+    log(f"phase1c: probe kernels and designs ready after {time.perf_counter() - t0:.3f} s more "
+        f"(nvcc {_build.build_seconds.get('probes', 'cached')} s and {_build.build_seconds.get('designs', 'cached')} s, "
+        f"started in phase 0)")
     for k in bl.LAUNCHES:
         bl.LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -1407,29 +1413,41 @@ def start_kernel_builds():
     waits for its build)."""
     from acoustid_index_tpu_torch.ops import _build
 
-    for name in ("kernels", "probes"):
+    for name in ("kernels", "probes", "designs"):
         threading.Thread(target=_build.library, args=(name,), daemon=True).start()
 
 
 def kernel_entry(name, variant, replaces, also, records, main_shape, launches,
-                 source="acoustid_index_tpu_torch/csrc/block_lookup.cu"):
+                 source="acoustid_index_tpu_torch/csrc/block_lookup.cu", design=None):
     """One kernel's entry of the final `kernels` line: `variant` ("new" or
     "scan") of the phase-1 records of one kernel contract.  The top-level
     times are those at `main_shape`, the shape of its heaviest main-path
     call, cold (fresh input sets, as the main path finds them); "shapes"
-    holds every shape it ran at, with its warm time beside."""
+    holds every shape it ran at, with its warm time beside.  Where the
+    records time designs the kernel did not take (K3, K4: measure.EMIT_DESIGNS),
+    "designs" holds their cold and warm times from the same turns, and
+    "read_bytes" what each design reads."""
+    from acoustid_index_tpu_torch import measure as m
+
     def summary(r):
         v = r["variants"][variant]
         lib = r["variants"].get("searchsorted")
-        return {"L": r["L"], "timed": r["timed"], "ms": v["median_ms"], "ms_min": v["min_ms"], "ms_max": v["max_ms"],
-                "ms_warm": v.get("warm", v)["median_ms"],
-                "plain_ms": r["plain_ms"], "library_ms": lib["median_ms"] if lib else None,
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "needed_bytes": r["needed_bytes"],
-                "scan_bytes": r["scan_bytes"], "scan_bound_ms": r["scan_bound_ms"]}
+        out = {"L": r["L"], "timed": r["timed"], "ms": v["median_ms"], "ms_min": v["min_ms"], "ms_max": v["max_ms"],
+               "ms_warm": v.get("warm", v)["median_ms"],
+               "plain_ms": r["plain_ms"], "library_ms": lib["median_ms"] if lib else None,
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "needed_bytes": r["needed_bytes"],
+               "scan_bytes": r["scan_bytes"], "scan_bound_ms": r["scan_bound_ms"]}
+        designs = {k: {"ms": d["median_ms"], "ms_warm": d.get("warm", d)["median_ms"]}
+                   for k, d in r["variants"].items() if k in m.EMIT_DESIGNS}
+        if designs:
+            out["designs"] = designs
+        if "read_bytes" in r:
+            out["read_bytes"] = r["read_bytes"]
+        return out
 
     shapes = {f"{r['shape']}-stride{r['stride']}": summary(r) for r in records}
     top = shapes[main_shape]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "also_replaces": also,
         "launches": sum(launches.values()), "launches_by_path": launches,
@@ -1437,6 +1455,10 @@ def kernel_entry(name, variant, replaces, also, records, main_shape, launches,
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": top["library_ms"],
         "lookups": top["L"], "main_shape": main_shape, "shapes": shapes,
     }
+    if design:
+        entry["design"] = design
+        entry["designs_not_taken"] = top["designs"]
+    return entry
 
 
 def main() -> int:
@@ -1451,7 +1473,7 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
-    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, N_DOCS, sorted_corpus
+    from acoustid_index_tpu_torch.measure import HASHES_PER_DOC, N_DOCS, kernel_design, sorted_corpus
     from acoustid_index_tpu_torch.utils.device import device
 
     dev = device()
@@ -1513,6 +1535,7 @@ def main() -> int:
                  "probes/_probe_fused2.py:98"]  # the last at E = 0, "plain" and "rm"
     k2_also = ["acoustid_index_tpu/ops/pallas_lookup.py:86"]
     probe_cu = "acoustid_index_tpu_torch/csrc/probe_lookup.cu"
+    design = "{} (csrc/sector_search.cuh)".format
     kernels = [
         kernel_entry("block_count", "new", "acoustid_index_tpu/ops/pallas_lookup.py:256", k1_also + k1_probes,
                      of("block_count"), "a-stride1", launches("block_count")),
@@ -1529,12 +1552,17 @@ def main() -> int:
                      of("block_count"), "a-stride1", launches("block_count_scan")),
         kernel_entry("block_count_emit_scan", "scan", "acoustid_index_tpu/ops/pallas_lookup.py:347", k2_also,
                      of("block_count_emit"), "c-stride2", launches("block_count_emit_scan")),
-        # K3-K5: the probes' kernels, launched on the probes path (phase 1c).
+        # K3-K5: the probes' kernels, launched on the probes path (phase 1c);
+        # K3 and K4 name their design and carry the designs they did not
+        # take (thread11, the first design; the other sector arities), timed in the
+        # same turns.
         kernel_entry("block_count_pair", "new", "probes/_pairkernel.py:93",
                      ["probes/_probe_dma.py:73", "probes/_probe_smem.py:60", "probes/_probe_floor.py:63"],
-                     of("block_count_pair"), "probe-window-stride1", launches("block_count_pair"), probe_cu),
+                     of("block_count_pair"), "probe-window-stride1", launches("block_count_pair"), probe_cu,
+                     design(kernel_design("block_count_pair"))),
         kernel_entry("block_count_emit_docids", "new", "probes/_probe_fused.py:115", ["probes/_probe_fused2.py:98"],
-                     of("block_count_emit_docids"), "probe-E2-R1024-stride2", launches("block_count_emit_docids"), probe_cu),
+                     of("block_count_emit_docids"), "probe-E2-R1024-stride2", launches("block_count_emit_docids"), probe_cu,
+                     design(kernel_design("block_count_emit_docids"))),
         kernel_entry("block_count_staged", "G8xNBUF4", "probes/_probe_dma2.py:79",
                      ["probes/_probe_dma2.py:149", "probes/_probe_dma2.py:215", "probes/_probe_ceiling.py:119",
                       "probes/_probe_wavemm.py:108"],

@@ -17,11 +17,14 @@ bit set; queries hit at random positions and at the block's end (so lt + e
 passes 1024 for the docid extractions), miss, and take 0 and 0xFFFFFFFF.
 Every output is an integer: the tolerance is 0.
 
-Also here: the wrappers' CPU path and checks, the CHECK_SORTED hook, a
-numpy model of K3's and K4's search schedule held to the plain versions
-under hypothesis, and `test_cuda_*` cases that hold each kernel to its
-plain version on a card (`python -m pytest tests/test_torch_probes.py -k
-cuda`), skipped without one.
+Also here: the wrappers' CPU path and checks, the CHECK_SORTED hook,
+numpy models of K3's and K4's search schedules -- the sector search the
+kernels run (csrc/sector_search.cuh, at every arity measure.py times) and
+the kernels' first design, a per-thread binary search (thread11) -- held to the plain versions
+under hypothesis and on adversarial blocks, and to measure.py's count of
+the bytes each design reads; and `test_cuda_*` cases that hold each kernel
+and each design not taken to its plain version on a card (`python -m
+pytest tests/test_torch_probes.py -k cuda`), skipped without one.
 """
 
 import ast
@@ -425,7 +428,8 @@ def test_check_sorted_hook_rejects_unsorted_block(kernel, monkeypatch):
 
 
 def _bounds_model(at, q):
-    """(lt, ub) per row as csrc/probe_lookup.cu's search computes them:
+    """(lt, ub) per row as the first design of K3 and K4 (thread11,
+    csrc/probe_lookup_designs.cu) computes them:
     `at(rows, i)` reads hash i of each row's block; per bound a probe at
     b + half - 1 for half = 512 .. 1 moves b up by half when the entry is
     below the bound, then one compare at b settles it."""
@@ -440,31 +444,109 @@ def _bounds_model(at, q):
     return out
 
 
-def _pair_model(h, blk0, blk1, q, variant, g):
+def _rows_at(blocks, blk):
+    """at(i): hash i of each row's block, i of shape (rows,) or (rows, k)."""
+    blk = np.asarray(blk, np.int64)
+    return lambda i: blocks[blk.reshape(-1, *([1] * (np.ndim(i) - 1))), i]
+
+
+SECTOR_ROUNDS = {2: 8, 4: 5, 8: 4}  # dependent rounds of the sector search, its last sector's included
+
+
+def _sector_bounds_model(at, q, arity):
+    """(lt, ub, rounds, s) per row as csrc/sector_search.cuh's sector search
+    computes them.  Per bound the search finds the sector s of its bound
+    among the block's 128 sectors of 8 hashes: a round over an interval of
+    `size` sectors from base b loads the first hashes of sectors b + step *
+    i (i = 1 .. k - 1, k = min(arity, size), step = size // k) and moves b
+    by step per pivot below the bound; then it loads sector s (two 16-byte
+    loads, at 8 s and 8 s + 4) and counts it: the bound is 8 s + the
+    sector's hashes below it.  The upper bound shares the lower bound's
+    loads while their bases agree and issues its own where they part.
+    `rounds`: one (rows, n) array per dependent round of the hash
+    positions loaded, -1 where a load is not issued; `s` the lower bound's
+    sector."""
+    q = q.astype(np.int64)
+    sl = np.zeros(q.shape[0], np.int64)
+    su = sl.copy()
+    rounds = []
+    size = BLOCK // 8
+    while size > 1:
+        k = min(arity, size)
+        step = size // k
+        piv_l = 8 * (sl[:, None] + step * np.arange(1, k))
+        piv_u = 8 * (su[:, None] + step * np.arange(1, k))
+        split = (su != sl)[:, None]
+        rounds.append(np.concatenate([piv_l, np.where(split, piv_u, -1)], 1))
+        sl = sl + step * (at(piv_l) < q[:, None]).sum(1)
+        su = su + step * (np.where(split, at(piv_u), at(piv_l)) <= q[:, None]).sum(1)
+        size = step
+    split = (su != sl)[:, None]
+    rounds.append(np.concatenate([8 * sl[:, None] + [0, 4], np.where(split, 8 * su[:, None] + [0, 4], -1)], 1))
+    lt = 8 * sl + (at(8 * sl[:, None] + np.arange(8)) < q[:, None]).sum(1)
+    ub = 8 * su + (at(8 * su[:, None] + np.arange(8)) <= q[:, None]).sum(1)
+    return lt, ub, rounds, sl
+
+
+def _bounds(at, q, schedule):
+    """(lt, ub) by the schedule "thread11" (the first design) or "sectorK"."""
+    if schedule == "thread11":
+        return _bounds_model(at, q)
+    return _sector_bounds_model(at, q, _arity(schedule))[:2]
+
+
+def _arity(schedule):
+    return int(schedule.removeprefix("sector").removesuffix("lazy"))
+
+
+def _pair_model(h, blk0, blk1, q, variant, g, schedule="thread11"):
     """K3's (lt, eq), which it packs as lt + (eq << 12): the flat table `h`
-    (stride 1)."""
+    (stride 1), each block searched by `schedule`."""
     blocks = h.reshape(-1, BLOCK)
     rows = np.arange(q.shape[0])
     if variant == "empty":
         return rows % g, np.zeros_like(rows)
     if variant == "noreduce":
         return (blocks[blk0, 0] < q).astype(np.int64), np.zeros_like(rows)
-    lt0, ub0 = _bounds_model(lambda i: blocks[blk0, i], q)
+    lt0, ub0 = _bounds(_rows_at(blocks, blk0), q, schedule)
     if variant == "oneblock":
         return lt0, ub0 - lt0
     on = blk1 > 0
-    lt1, ub1 = _bounds_model(lambda i: blocks[np.where(on, blk1, blk0), i], q)
+    lt1, ub1 = _bounds(_rows_at(blocks, np.where(on, blk1, blk0)), q, schedule)
     return lt0 + on * lt1, (ub0 - lt0) + on * (ub1 - lt1)
 
 
-def _emit_model(inter, blk, q, E, R, mode):
+def _sector_docids(word, lt, s, E, mode):
+    """K4's E docids as the sector schedule selects them: docid sector s
+    (A) and the first half of sector s + 1 (B), loaded with the last hash
+    sector (B, lazily, only where lt + E - 1 reaches it: the same values);
+    past the block (s = 127) B is the first half of docid sector 112
+    ("slice": row 7, lanes 0-3) or zeros ("onehot"); d_e = word lt - 8 s + e
+    of A then B."""
+    a = word(8 * s[:, None] + np.arange(8))
+    past = (s + 1 >= BLOCK // 8)[:, None]
+    b = word(np.where(past, BLOCK - 128, 8 * (s[:, None] + 1)) + np.arange(4))
+    if mode == "onehot":
+        b = np.where(past, 0, b)
+    w = np.concatenate([a, b], 1)
+    rows = np.arange(lt.shape[0])
+    return [w[rows, lt - 8 * s + e] for e in range(E)]
+
+
+def _emit_model(inter, blk, q, E, R, mode, schedule="thread11"):
     """K4's (comp, d): the R-layout table `inter`, loads at
-    (i // R) * 2R + (i % R) (hashes) and + R (docids)."""
+    (i // R) * 2R + (i % R) (hashes) and + R (docids); `schedule` as
+    _bounds, the sector schedule with its own docid selection."""
     base = blk.astype(np.int64)[:, None] * 2 * BLOCK
 
     def word(i, off):
-        return inter[base[:, 0] + (i // R) * 2 * R + off + (i % R)]
+        i = np.asarray(i)
+        return inter[base.reshape(-1, *([1] * (i.ndim - 1))) + (i // R) * 2 * R + off + (i % R)]
 
+    if schedule != "thread11":
+        lt, ub, _, s = _sector_bounds_model(lambda i: word(i, 0), q, _arity(schedule))
+        d = _sector_docids(lambda i: word(i, R), lt, s, E, mode)
+        return lt + ((ub - lt) << 12), np.array(d, np.uint32).reshape(E, q.shape[0])
     lt, ub = _bounds_model(lambda i: word(i, 0), q)
     d = []
     for e in range(E):
@@ -473,11 +555,12 @@ def _emit_model(inter, blk, q, E, R, mode):
             d.append(word(np.minimum(p >> 7, ROWS - 1) * 128 + (p & 127), R))
         else:
             d.append(np.where(p < BLOCK, word(np.minimum(p, BLOCK - 1), R), 0))
-    return lt + ((ub - lt) << 12), np.array(d, np.uint32).reshape(E, -1)
+    return lt + ((ub - lt) << 12), np.array(d, np.uint32).reshape(E, q.shape[0])
 
 
 _U32 = st.one_of(st.integers(0, 0xFFFFFFFF), st.sampled_from([0, 1, (1 << 31) - 1, 1 << 31, 0xFFFFFFFE, 0xFFFFFFFF]))
-_CUT = st.one_of(st.integers(0, BLOCK), st.sampled_from([0, 1, 127, 128, 129, 895, 896, 1020, 1021, 1022, 1023, 1024]))
+_CUT = st.one_of(st.integers(0, BLOCK), st.sampled_from([0, 1, 7, 8, 9, 15, 16, 127, 128, 129, 895, 896, 1015, 1016, 1017,
+                                                         1020, 1021, 1022, 1023, 1024]))
 
 
 @st.composite
@@ -508,29 +591,225 @@ def _model_queries(h, rng):
     return blk0, blk1, q
 
 
-@pytest.mark.parametrize("variant", ["full", "oneblock", "noreduce", "empty"])
+PAIR_SCHEDULES = ("thread11",) + tuple(f"sector{a}" for a in (2, 4, 8))  # measure.PAIR_DESIGNS
+EMIT_SCHEDULES = PAIR_SCHEDULES + tuple(f"sector{a}lazy" for a in (2, 4, 8))  # measure.EMIT_DESIGNS
+
+
+def _with_sectors(cases, ids, schedules):
+    """Each case under the thread11 schedule (its id as before) and under every
+    sector schedule (id + "-sectorK")."""
+    out = [pytest.param(*c, "thread11", id=i) for c, i in zip(cases, ids)]
+    return out + [pytest.param(*c, sch, id=f"{i}-{sch}") for c, i in zip(cases, ids) for sch in schedules[1:]
+                  if c[0] not in ("noreduce", "empty")]
+
+
+@pytest.mark.parametrize("variant,schedule", _with_sectors([(v,) for v in port.PAIR_VARIANTS], port.PAIR_VARIANTS, PAIR_SCHEDULES))
 @settings(max_examples=25, deadline=None)
 @given(h=_sorted_table(), seed=st.integers(0, 2**16))
-def test_pair_model_matches_plain(variant, h, seed):
+def test_pair_model_matches_plain(variant, schedule, h, seed):
     blk0, blk1, q = _model_queries(h, np.random.default_rng(seed))
     comp = port.block_count_pair_plain(_t(h), _t(blk0), _t(blk1), _t(q), 1, variant, 8)
-    lt_m, eq_m = _pair_model(h, blk0, blk1, q, variant, 8)
+    lt_m, eq_m = _pair_model(h, blk0, blk1, q, variant, 8, schedule)
     np.testing.assert_array_equal(comp.numpy(), lt_m + (eq_m << 12))
     np.testing.assert_array_equal([x.numpy() for x in port.counts(comp)], [lt_m, eq_m])
 
 
-@pytest.mark.parametrize("R,mode", [(1024, "onehot"), (1024, "slice"), (128, "onehot"), (128, "slice")])
+_EMIT_CASES = [(1024, "onehot"), (1024, "slice"), (128, "onehot"), (128, "slice")]
+
+
+@pytest.mark.parametrize("R,mode,schedule", _with_sectors(_EMIT_CASES, [f"{R}-{m}" for R, m in _EMIT_CASES], EMIT_SCHEDULES))
 @settings(max_examples=25, deadline=None)
 @given(h=_sorted_table(), seed=st.integers(0, 2**16))
-def test_emit_docids_model_matches_plain(R, mode, h, seed):
+def test_emit_docids_model_matches_plain(R, mode, schedule, h, seed):
     rng = np.random.default_rng(seed)
     blk, _, q = _model_queries(h, rng)
     d = rng.integers(0, 1 << 32, h.shape[0], dtype=np.uint32)
     inter = _interleave(h, d, R)
     comp, dd = port.block_count_emit_docids_plain(_t(inter), _t(blk), _t(q), 4, R, mode)
-    comp_m, dd_m = _emit_model(inter, blk, q, 4, R, mode)
+    comp_m, dd_m = _emit_model(inter, blk, q, 4, R, mode, schedule)
     np.testing.assert_array_equal(comp.numpy(), comp_m)
     np.testing.assert_array_equal(dd.numpy(), dd_m.view(np.int32))
+
+
+def _adversarial_table():
+    """(hashes, docids) u32 of 8 sorted blocks at the sector search's
+    edges: equal runs straddling sector (8k) and 128-entry boundaries; a
+    block all 2^31; hashes >= 2^31 below 0xFFFFFFFF (q = 0xFFFFFFFF gives lt
+    = 1024); 1, 3, 5, ... (every lt from 0 to 1024 is some query's, so K4's
+    docid sectors run to every run's end at R = 128); 600 zeros then
+    0xFFFFFFFF; all 0xFFFFFFFF; all 0; a run across the whole second half."""
+    rng = np.random.default_rng(71)
+    straddle = np.arange(BLOCK, dtype=np.uint32) * 3 + 10
+    for k in (8, 16, 64, 120, 128, 256, 504, 896, 1016):
+        straddle[k - 3 : k + 5] = straddle[k - 3]
+    for k in (128, 384, 640):
+        straddle[k - 9 : k + 11] = straddle[k - 9]
+    half = np.sort(rng.integers(0, 1 << 20, BLOCK, dtype=np.uint32))
+    half[512:] = half[511]
+    blocks = [
+        np.sort(straddle),
+        np.full(BLOCK, 1 << 31, np.uint32),
+        np.sort(rng.integers(1 << 31, 0xFFFFFFFF, BLOCK, dtype=np.uint32)),
+        np.arange(BLOCK, dtype=np.uint32) * 2 + 1,
+        np.r_[np.zeros(600, np.uint32), np.full(BLOCK - 600, 0xFFFFFFFF, np.uint32)],
+        np.full(BLOCK, 0xFFFFFFFF, np.uint32),
+        np.zeros(BLOCK, np.uint32),
+        half,
+    ]
+    d = rng.integers(0, 1 << 32, len(blocks) * BLOCK, dtype=np.uint32)
+    d[::3] |= np.uint32(0x80000000)
+    return np.concatenate(blocks), d
+
+
+def _adversarial_queries(h):
+    """(blk0, blk1, q): every block asked each of its own distinct values,
+    each +- 1, 0, 2^31 +- 1 and 0xFFFFFFFF; blk1 the next block for half."""
+    blk, q = [], []
+    for b, block in enumerate(h.reshape(-1, BLOCK)):
+        v = np.unique(block).astype(np.int64)
+        cand = np.unique(np.r_[v, v - 1, v + 1, 0, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, 0xFFFFFFFF])
+        cand = cand[(cand >= 0) & (cand <= 0xFFFFFFFF)].astype(np.uint32)
+        blk.append(np.full(cand.shape[0], b, np.int32))
+        q.append(cand)
+    blk0, q = np.concatenate(blk), np.concatenate(q)
+    nblk = h.shape[0] // BLOCK
+    blk1 = np.where((np.arange(q.shape[0]) % 2 == 0) & (blk0 + 1 < nblk), blk0 + 1, 0).astype(np.int32)
+    return blk0, blk1, q
+
+
+@pytest.mark.parametrize("schedule", EMIT_SCHEDULES)
+def test_adversarial_blocks_model_matches_plain(schedule):
+    """Both kernels' schedules on the adversarial blocks: every K3 variant,
+    and K4 at E = 0..4 in both layouts and modes (lt = 1024 with E = 4 in
+    both modes is among them)."""
+    h, d = _adversarial_table()
+    blk0, blk1, q = _adversarial_queries(h)
+    for variant in port.PAIR_VARIANTS:
+        comp = port.block_count_pair_plain(_t(h), _t(blk0), _t(blk1), _t(q), 1, variant, 8)
+        lt_m, eq_m = _pair_model(h, blk0, blk1, q, variant, 8, schedule.removesuffix("lazy"))
+        np.testing.assert_array_equal(comp.numpy(), lt_m + (eq_m << 12))
+    for R in (1024, 128):
+        inter = _interleave(h, d, R)
+        for mode in ("onehot", "slice"):
+            for E in range(5):
+                comp, dd = port.block_count_emit_docids_plain(_t(inter), _t(blk0), _t(q), E, R, mode)
+                comp_m, dd_m = _emit_model(inter, blk0, q, E, R, mode, schedule)
+                np.testing.assert_array_equal(comp.numpy(), comp_m)
+                np.testing.assert_array_equal(dd.numpy(), dd_m.view(np.int32))
+    lt = comp.numpy() & 0xFFF
+    assert (lt == BLOCK).any() and ((lt > 0) & (lt % 8 == 0)).any() and (lt == 0).any()
+
+
+@pytest.mark.parametrize("arity", [2, 4, 8])
+def test_sector_schedule_rounds_and_loads(arity):
+    """The sector search takes SECTOR_ROUNDS[arity] dependent rounds (11
+    for the thread11 design, one more for K4's docids), at most arity - 1 pivots
+    per bound and round and one final sector; the upper bound issues loads
+    of its own only where a run equal to q straddles a pivot; and
+    measure.search_schedule, from which measure.kernel_bound counts the
+    bytes each design reads, loads the same sectors as this model."""
+    import acoustid_index_tpu_torch.measure as m
+
+    h, _ = _adversarial_table()
+    blk, _, q = _adversarial_queries(h)
+    blocks = h.reshape(-1, BLOCK)
+    at = _rows_at(blocks, blk)
+    lt, ub, rounds, s = _sector_bounds_model(at, q, arity)
+    assert len(rounds) == SECTOR_ROUNDS[arity]
+    assert all(r.shape[1] <= 2 * (arity - 1) for r in rounds[:-1]) and rounds[-1].shape[1] == 4
+    own = np.concatenate([r[:, r.shape[1] // 2 :] for r in rounds], 1) >= 0  # the upper bound's own loads
+    assert own.any() and not own[ub == lt].any()
+    rows = torch.from_numpy(blocks[blk].astype(np.int64))
+    t_lt, t_ub, reads, t_s = m.search_schedule(
+        f"sector{arity}", lambda i: rows.gather(1, i.reshape(i.shape[0], -1)).reshape(i.shape), torch.from_numpy(q.astype(np.int64)))
+    np.testing.assert_array_equal(t_lt.numpy(), lt)
+    np.testing.assert_array_equal(t_ub.numpy(), ub)
+    np.testing.assert_array_equal(t_s.numpy(), s)
+    loads = np.concatenate(rounds, 1)
+    model = np.unique((np.arange(q.shape[0])[:, None] * 128 + loads // 8)[loads >= 0])
+    reads = reads.numpy()
+    got = np.unique((np.arange(q.shape[0])[:, None] * 128 + reads // 8)[reads >= 0])
+    np.testing.assert_array_equal(got, model)
+
+
+@pytest.mark.parametrize("kernel", ["pair", "emit_docids_1024", "emit_docids_128"])
+def test_read_bytes_follow_the_schedules(kernel):
+    """measure.kernel_bound's read_bytes per design: the distinct 32-byte
+    sectors that the numpy models load (thread11: each probe it makes;
+    the sector designs: their pivots, final sectors and, for K4, the docid
+    sectors of the last round), plus the call's I/O."""
+    import acoustid_index_tpu_torch.measure as m
+
+    h, d = _adversarial_table()
+    blk0, blk1, q = _adversarial_queries(h)
+    L = q.shape[0]
+    if kernel == "pair":
+        s = m._set(_t(h), _t(blk0), port.u32(_t(q)))
+        s["blk1"] = _t(blk1)
+        rec = m.kernel_bound({"kernel": "block_count_pair", "stride": 1, "variant": "full"}, s)
+        words, R, io = BLOCK, None, L * 16
+    else:
+        R = int(kernel.rsplit("_", 1)[1])
+        s = m._set(_t(_interleave(h, d, R)), _t(blk0), port.u32(_t(q)))
+        rec = m.kernel_bound({"kernel": "block_count_emit_docids", "stride": 2, "E": 4, "R": R, "mode": "slice"}, s)
+        words, io = 2 * BLOCK, L * 8 + L * 4 * 5
+    blocks = h.reshape(-1, BLOCK)
+    hword = (lambda i: i) if R is None else (lambda i: (i // R) * 2 * R + i % R)
+    for schedule in PAIR_SCHEDULES if kernel == "pair" else EMIT_SCHEDULES:
+        pos = []  # (block, word) of every load
+        lookups = [(blk0, np.ones(L, bool))] + ([(blk1, blk1 > 0)] if kernel == "pair" else [])
+        for b, on in lookups:
+            b, qq = b[on].astype(np.int64), q[on]
+            at = _rows_at(blocks, b)
+            if schedule == "thread11":
+                probes = []  # every probe of _bounds_model, recorded through `at`
+                _bounds_model(lambda i: (probes.append(i), at(i))[1], qq)
+                loads = np.stack(probes, 1)
+                lt = _bounds_model(at, qq)[0]
+                dl = lt[:, None] + np.arange(4)
+                dl = np.minimum(dl >> 7, ROWS - 1) * 128 + (dl & 127)
+            else:
+                lt, _, rounds, sec = _sector_bounds_model(at, qq, _arity(schedule))
+                loads = np.concatenate(rounds, 1)
+                b_at = np.where(sec + 1 >= 128, BLOCK - 128, 8 * (sec + 1))  # "slice": B exists past the block
+                if schedule.endswith("lazy"):  # B only where lt + 3 reaches it (E = 4)
+                    b_at = np.where(lt - 8 * sec + 3 >= 8, b_at, 8 * sec)
+                dl = np.stack([8 * sec, b_at], 1)
+            word = np.where(loads >= 0, hword(np.maximum(loads, 0)), -1)
+            if R is not None:
+                word = np.concatenate([word, (dl // R) * 2 * R + R + dl % R], 1)
+            pos.append((b[:, None] * words + word)[word >= 0] // 8)
+        assert rec["read_bytes"][schedule] == np.unique(np.concatenate(pos)).shape[0] * 32 + io, schedule
+
+
+def test_sector_arity_matches_the_kernel_source():
+    """ops/probe_lookup.SECTOR_ARITY and SECTOR_LAZY name the design
+    csrc/probe_lookup.cu launches."""
+    import re
+
+    src = os.path.join(os.path.dirname(port.__file__), "..", "csrc", "probe_lookup.cu")
+    with open(src) as f:
+        text = f.read()
+    assert int(re.search(r"constexpr int ARITY = (\d+);", text).group(1)) == port.SECTOR_ARITY
+    assert re.search(r"constexpr bool LAZY = (\w+);", text).group(1) == str(port.SECTOR_LAZY).lower()
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """An edit of csrc/sector_search.cuh names a new build of the libraries
+    that include it, so a stale library never loads."""
+    import shutil
+
+    from acoustid_index_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", str(csrc))
+    before = {name: _build._so_path(name) for name in ("probes", "designs", "kernels")}
+    with open(csrc / "sector_search.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build._so_path(name) for name in before}
+    assert after["probes"] != before["probes"] and after["designs"] != before["designs"]
+    assert "probe_lookup_designs.cu" in _build.LIBRARIES["designs"][0]
 
 
 # ---- the CUDA kernels vs their plain versions (card only) ----
@@ -573,6 +852,70 @@ def test_cuda_block_count_emit_docids_matches_plain(cuda, E, R, mode):
     args = (_t(_interleave(h, d, R)), _t(blk), _t(q))
     want = port.block_count_emit_docids_plain(*args, E, R, mode)
     _same(port.block_count_emit_docids(*_on(cuda, *args), E, R, mode), want)
+
+
+def _pair_kernels(design):
+    """K3 as the wrapper launches it, or one of its designs not taken."""
+    if design == "kernel":
+        return port.block_count_pair
+    from acoustid_index_tpu_torch import measure
+
+    return lambda *a: measure.design_pair(design, *a)
+
+
+def _emit_kernels(design):
+    if design == "kernel":
+        return port.block_count_emit_docids
+    from acoustid_index_tpu_torch import measure
+
+    return lambda *a: measure.design_emit_docids(design, *a)
+
+
+@pytest.mark.parametrize("variant", ["full", "oneblock", "noreduce", "empty"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("design", PAIR_SCHEDULES)
+def test_cuda_pair_designs_match_plain(cuda, design, stride, variant):
+    """K3's designs not taken (thread11, every sector arity), from
+    the designs library, on test_cuda_block_count_pair_matches_plain's inputs."""
+    h, d, blk0, blk1, q = _pair_inputs(nblk=64, L=5000, seed=61)
+    table = _t(h if stride == 1 else _interleave(h, d, 1024))
+    args = (table, _t(blk0), _t(blk1), _t(q))
+    want = port.block_count_pair_plain(*args, stride, variant, 7)
+    _same(_pair_kernels(design)(*_on(cuda, *args), stride, variant, 7), want)
+
+
+@pytest.mark.parametrize("mode", ["onehot", "slice"])
+@pytest.mark.parametrize("R", [1024, 128])
+@pytest.mark.parametrize("design", EMIT_SCHEDULES)
+def test_cuda_emit_docids_designs_match_plain(cuda, design, R, mode):
+    """K4's designs not taken at E = 0..4, on test_cuda_block_count_emit_docids_matches_plain's inputs."""
+    h, d = _table(64, 63)
+    blk, q = _lookups(h, 64, 5000, 64)
+    args = (_t(_interleave(h, d, R)), _t(blk), _t(q))
+    for E in range(5):
+        want = port.block_count_emit_docids_plain(*args, E, R, mode)
+        _same(_emit_kernels(design)(*_on(cuda, *args), E, R, mode), want)
+
+
+@pytest.mark.parametrize("design", ("kernel",) + EMIT_SCHEDULES)
+def test_cuda_adversarial_blocks_match_plain(cuda, design):
+    """K3 (every variant, strides 1 and 2) and K4 (E = 0..4, both layouts
+    and modes) and their designs on the adversarial blocks: runs across
+    sector and 128-entry boundaries, a block all equal, q = 0, 2^31 and
+    0xFFFFFFFF, hashes >= 2^31, lt = 1024 with E = 4."""
+    h, d = _adversarial_table()
+    blk0, blk1, q = _adversarial_queries(h)
+    for stride in (1, 2):
+        args = (_t(h if stride == 1 else _interleave(h, d, 1024)), _t(blk0), _t(blk1), _t(q))
+        for variant in port.PAIR_VARIANTS:
+            want = port.block_count_pair_plain(*args, stride, variant, 8)
+            _same(_pair_kernels(design.removesuffix("lazy"))(*_on(cuda, *args), stride, variant, 8), want)
+    for R in (1024, 128):
+        args = (_t(_interleave(h, d, R)), _t(blk0), _t(q))
+        for mode in ("onehot", "slice"):
+            for E in range(5):
+                want = port.block_count_emit_docids_plain(*args, E, R, mode)
+                _same(_emit_kernels(design)(*_on(cuda, *args), E, R, mode), want)
 
 
 @pytest.mark.parametrize("g,nbuf", [(g, n) for g in port.STAGED_G for n in port.STAGED_NBUF if port.staged_fits(g, n)])
