@@ -15,18 +15,34 @@ memory tier, then reports:
   * a torch.profiler trace of 5 batches at B=256: summed device time over
     wall time (the card's busy share) and the largest device entries;
   * K1 and K2 alone at the shapes the main path gives them
-    (main_path_cases, phase1_cases): (a) K1 over the packed tier's 1 MiB
-    top index with a B=256 batch's 32,768 landing lookups; (b) K1 as
-    tier_ranges_resident calls it, two lookups per query, over a sorted
-    table of the smoke's live memory-tier size; (c) K1 stride 2 and K2 over
-    the packed 2 GiB interleaved tier with 32,768 + 2,048 lookups; (d)
-    chip_smoke.py's 64K-block table (all four kernels).  At each shape the
-    kernel, its first (scanning) design, the search designs it did not take
-    (csrc/block_lookup_designs.cu) and, for K1, the torch.searchsorted
+    (main_path_cases, phase1_cases, scale_cases): (a) K1 over the packed
+    tier's 1 MiB top index with a B=256 batch's 32,768 landing lookups; (b)
+    K1 as tier_ranges_resident calls it, two lookups per query, over a
+    sorted table of the smoke's live memory-tier size; (c) K1 stride 2 and
+    K2 over the packed 2 GiB interleaved tier with 32,768 + 2,048 lookups;
+    (d) chip_smoke.py's 64K-block table (all four kernels); then, the 10M
+    tier freed, over the 134M tier of bench_100m.py (2^31 interleaved
+    entries): (e) K1 over its 4 MiB top index with a B=256 batch's 16,384
+    landing lookups (64-wide queries, padding included); (f) K1 stride 2
+    and K2 over the 8 GiB tier with 16,384 + 2,048 lookups; (g) the same
+    with (c)'s 32,768 + 2,048 lookups, every lane live.  At each shape
+    the kernel, its first (scanning) design, the search designs it did not
+    take (csrc/block_lookup_designs.cu) and, for K1, the torch.searchsorted
     yardstick run in turns, 5 rounds of 50 launches each, cold (cycling
     through input sets that together exceed the L2 four times) and warm
     (one set), with nvidia-smi's SM clock and power draw read around each
     round; each must equal the plain version bit for bit on every set first.
+
+    python -m acoustid_index_tpu_torch.measure --stages [--out FILE]
+
+times the program's stages in place of the above (stage_split, the
+counterpart of bench_sweep.py): range, branch, gather, rank, mention,
+select and fetch of B=256 batches, in the order and on the branch that
+_search_batch_impl takes, by host clock and CUDA events on the searcher's
+stream, and each stage's kernel time under torch.profiler; at the 10M tier
+(serving batches), then bench_sweep.py's postings-budget sweep there (the
+sort path at P = 1024, 2048, 4096), then at the 134M tier
+(bench_100m.py's batches).  Writes chiprun_out/measure_stages.json.
 
     python -m acoustid_index_tpu_torch.measure --mesh 1,2,4,8 [--out FILE]
 
@@ -48,6 +64,7 @@ card; builds the kernels at first use like any other caller.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -348,6 +365,61 @@ def _k2_case(shape, note, sets, designs=False):
     return _case("block_count_emit", shape, note, 2, sets, variants, lambda s: bl.block_count_emit_plain(*s["inputs"]))
 
 
+def top_index(inter):
+    """The interleaved tier's top index (each block's first hash), padded
+    with 0xFFFFFFFF to a BLOCK multiple as tier_ranges_blocked pads it."""
+    import torch
+
+    from .ops.layout import BLOCK
+
+    bi = inter.view(-1, 2 * BLOCK)[:, 0].contiguous()
+    if bi.shape[0] % BLOCK:
+        bi = torch.cat([bi, torch.full((-bi.shape[0] % BLOCK,), -1, dtype=torch.int32, device=bi.device)])
+    return bi
+
+
+def top_index_case(shape, note, bi, qs, designs: bool = False):
+    """K1 over the top index `bi` with each batch's landing lookups
+    (tier_ranges_blocked, stage 1): chunks from the top index's own
+    samples, each set over its own copy of the table."""
+    from .ops import block_lookup as bl
+    from .ops.layout import BLOCK, u32
+
+    sets = []
+    for k in range(_n_sets(bi.shape[0] * 4, qs[0].shape[0])):
+        t, q = bi.clone(), qs[k % len(qs)].clone()
+        sets.append(_set(t, bl._landing_chunk(u32(t[::BLOCK]), q), q, u32(t)))
+    return _k1_case(shape, note, 1, sets, designs)
+
+
+def hash_table(inter):
+    """The interleaved tier's hash halves, contiguous, as int64 u32 values:
+    the torch.searchsorted yardstick's table."""
+    from .ops.layout import BLOCK, u32
+
+    return u32(inter.view(-1, 2 * BLOCK)[:, :BLOCK].reshape(-1))
+
+
+def tier_cases(shape, inter, n_live: int, bi, qs, designs: bool = False, h64=None):
+    """K1 stride 2 and K2 over the interleaved tier `inter` (`n_live` live
+    postings, top index `bi`): each batch's landing stream plus its
+    straddle tail of TAIL lookups, one set per batch.  `h64`: the tier's
+    hash_table, if the caller has it."""
+    import torch
+
+    from .ops.layout import BLOCK, u32
+
+    h64 = hash_table(inter) if h64 is None else h64
+    blk_last = (n_live - 1) // BLOCK
+    top64 = u32(bi)
+    sets = []
+    for q in qs:
+        blk = torch.clamp(torch.searchsorted(top64, q, right=True) - 1, 0, blk_last)
+        sets.append(_set(inter, torch.cat([blk, torch.clamp(blk[:TAIL] - 1, min=0)]), torch.cat([q, q[:TAIL]]), h64))
+    note = f"{inter.shape[0] * 4 / 2**30:.2f} GiB interleaved tier, landing stream + tail"
+    return [_k1_case(shape, note, 2, sets, designs), _k2_case(shape, note, sets, designs)]
+
+
 def main_path_cases(inter, n_live: int, qpool, mem_hashes, g, designs: bool = False):
     """Shapes (a)-(c) and the L = 1 launch floor.  `inter` is a packed
     interleaved tier with `n_live` live postings (globally sorted), `qpool`
@@ -361,21 +433,12 @@ def main_path_cases(inter, n_live: int, qpool, mem_hashes, g, designs: bool = Fa
     from .ops.layout import BLOCK, u32
 
     dev = inter.device
-    nblk = inter.shape[0] // (2 * BLOCK)
-    hh = inter.view(nblk, 2 * BLOCK)[:, :BLOCK]
-    h64 = u32(hh.reshape(-1))  # the hash halves, contiguous: the yardstick's table
     qs = list(qpool)
 
     # (a) the file tier's top-index lookup (tier_ranges_blocked, stage 1),
     # each set over its own copy of the 1 MiB top index.
-    bi = hh[:, 0].contiguous()
-    if bi.shape[0] % BLOCK:
-        bi = torch.cat([bi, torch.full((-bi.shape[0] % BLOCK,), -1, dtype=torch.int32, device=dev)])
-    sets = []
-    for k in range(_n_sets(bi.shape[0] * 4, LOOKUPS)):
-        t, q = bi.clone(), qs[k % len(qs)].clone()
-        sets.append(_set(t, bl._landing_chunk(u32(t[::BLOCK]), q), q, u32(t)))
-    cases = [_k1_case("a", "top index of the file tier", 1, sets, designs)]
+    bi = top_index(inter)
+    cases = [top_index_case("a", "top index of the file tier", bi, qs, designs)]
 
     # (b) tier_ranges_resident over the live memory tier: chunks c-1 and c.
     sets = []
@@ -388,22 +451,55 @@ def main_path_cases(inter, n_live: int, qpool, mem_hashes, g, designs: bool = Fa
     cases.append(_k1_case("b", f"memory tier of {mem_hashes.shape[0]} entries, two lookups per query", 1, sets, designs))
 
     # (c) the landing stream of the file tier plus its straddle tail.
-    blk_last = (n_live - 1) // BLOCK
-    top64 = u32(bi)
-    sets = []
-    for q in qs:
-        blk = torch.clamp(torch.searchsorted(top64, q, right=True) - 1, 0, blk_last)
-        sets.append(_set(inter, torch.cat([blk, torch.clamp(blk[:TAIL] - 1, min=0)]), torch.cat([q, q[:TAIL]]), h64))
-    note = f"{inter.shape[0] * 4 / 2**30:.2f} GiB interleaved tier, landing stream + tail"
-    cases.append(_k1_case("c", note, 2, sets, designs))
-    cases.append(_k2_case("c", note, sets, designs))
+    cases += tier_cases("c", inter, n_live, bi, qs, designs)
 
     q1 = qs[0][:1].contiguous()
-    floor = _k1_case("floor", "L = 1: the launch floor", 1, [_set(bi, bl._landing_chunk(u32(bi[::BLOCK]), q1), q1, top64)])
+    floor = _k1_case("floor", "L = 1: the launch floor", 1, [_set(bi, bl._landing_chunk(u32(bi[::BLOCK]), q1), q1, u32(bi))])
     # As the main path called K1 before the range phase made int32 queries.
     floor["variants"]["new_int64_queries"] = lambda s: bl.block_count(s["inputs"][0], s["inputs"][1], s["q64"], 1)
     cases.append(floor)
     return cases
+
+
+def scale_qpool(rng, dev):
+    """QUERY_SETS batches of bench_100m's queries, flat (B * 64 int64 u32
+    values, padding lanes included), as the 134M range phase reads them."""
+    import torch
+
+    from . import bench_100m
+
+    return torch.stack([torch.from_numpy(bench_100m.make_queries(rng)[1].astype(np.int64).reshape(-1))
+                        for _ in range(QUERY_SETS)]).to(dev)
+
+
+def scale_cases(inter, qpool, g, designs: bool = False):
+    """Shapes (e), (f) and (g), the 134M tier's (bench_100m.build_tier: 2^30
+    live postings, 2^31 interleaved entries): (e) K1 over its 4 MiB top
+    index (2^20 blocks: the resident branch at 1,024 chunks) with a B = 256
+    batch's landing lookups; (f) K1 stride 2 and K2 over the 8 GiB tier
+    with the range phase's lookups; `qpool` holds QUERY_SETS batches of
+    flat query hashes (bench_100m's queries, padding lanes included, whose
+    lookups all land on block 0).  (g) K1 stride 2 and K2 over the same
+    tier with (c)'s lookup mix: LOOKUPS queries per set, every lane live,
+    one in six a stored hash and the rest uniform u32 (random blocks), so
+    that (c) and (g) differ in the table's size alone (2 and 8 GiB)."""
+    import torch
+
+    from .ops.layout import hash_gather
+
+    qs = list(qpool)
+    bi = top_index(inter)
+    n_live = inter.shape[0] // 2
+    h64 = hash_table(inter)
+    note = f"{bi.shape[0] * 4 / 2**20:.0f} MiB top index of the 134M tier"
+    cases = [top_index_case("e", note, bi, qs, designs)] + tier_cases("f", inter, n_live, bi, qs, designs, h64)
+    live = torch.randint(0, 0xFFFFFFFF, (QUERY_SETS, LOOKUPS), generator=g, device=inter.device, dtype=torch.int64)
+    stored = torch.randint(0, n_live, live[:, ::6].shape, generator=g, device=inter.device)
+    live[:, ::6] = hash_gather({"inter": inter}, stored)
+    g_cases = tier_cases("g", inter, n_live, bi, list(live), designs, h64)
+    for c in g_cases:
+        c["note"] += ", (c)'s lookup mix"
+    return cases + g_cases
 
 
 def phase1_cases(dev, g, designs: bool = False):
@@ -909,6 +1005,212 @@ def run_case(case, log=print):
     return rec
 
 
+# ---- the program's stages (the counterpart of bench_sweep.py) ----
+#
+# staged_search is _search_batch_impl (ops/search_kernel.py) cut at its
+# stage boundaries: the same calls in the same order, on the same branch,
+# each stage inside `stage(name)` so that a caller can time it.  It lives
+# here, not in search_kernel.py, and tests/test_torch_scale.py holds it
+# equal to _search_batch_impl on all three branches.
+
+STAGES = ("range", "branch", "gather", "rank", "mention", "select", "fetch")
+STAGE_BATCHES, STAGE_PROFILED = 20, 5
+SWEEP_BUDGETS = (1024, 2048, 4096)  # bench_sweep.py's postings budgets
+
+
+def _no_stage(name):
+    return contextlib.nullcontext()
+
+
+def staged_search(p, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts, stage=_no_stage, sort_path=False):
+    """(output dict, branch) of _search_batch_impl's batch, stage by stage:
+    range (_batch_ranges), branch (the predicates and their host sync),
+    gather (_direct_candidates or _plan_and_gather), rank (_score_matrix or
+    _score_rank), mention (_batch_newest), select (_final_select[_matrix]).
+    `sort_path` takes the sort branch whatever the predicates say, as
+    bench_sweep.py always did."""
+    import dataclasses
+
+    import torch
+
+    from .ops import search_kernel as sk
+
+    B = queries.shape[0]
+    want_emit = "inter" in file_tier and p.query_len <= 256
+    with stage("range"):
+        f_lo, f_cnt, m_lo, m_cnt, trunc, emit_info = sk._batch_ranges(
+            p, file_tier, mem_tier, queries, q_lens, want_emit=want_emit
+        )
+    with stage("branch"):
+        has_mem = m_cnt.sum() > 0
+        small_ok = p.postings_budget > sk.P_SMALL and p.candidate_cap <= sk.P_SMALL
+        small = torch.zeros((), dtype=torch.bool, device=queries.device)
+        if small_ok:
+            p_small, totals_rough = sk.small_budget(p, f_cnt, m_cnt, B)
+            small = totals_rough.max() <= sk.P_SMALL
+        direct_ok = torch.zeros((), dtype=torch.bool, device=queries.device)
+        if emit_info is not None:
+            rows, covered = emit_info
+            E_direct = 2 if p.query_len <= 128 else 1
+            ov_tot = torch.clamp(f_cnt - torch.where(covered, E_direct, 0), min=0).sum(1)
+            m_tot = m_cnt.sum(1)
+            direct_ok = (ov_tot.max() <= sk.F_DIRECT) & (m_tot.max() <= sk.P_MEM_DIRECT)
+        has_mem, small, direct_ok = sk._host(has_mem, small, direct_ok)
+        max_per_hash = (f_cnt + m_cnt).amax(1)
+        max_blocks_per_hash = (sk._tier_blocks(f_lo, f_cnt) + sk._tier_blocks(m_lo, m_cnt)).amax(1)
+    branch = "sort" if sort_path else "direct" if direct_ok else "matrix" if small_ok and small else "sort"
+    sk._count(branch)
+
+    if branch == "direct":
+        with stage("gather"):
+            d_f, inv_f, totals_f = sk._direct_candidates(p, file_tier, rows, covered, f_lo, f_cnt, E_direct)
+            if has_mem:
+                p_mem = dataclasses.replace(p, postings_budget=sk.P_MEM_DIRECT)
+                d_m, _o, inv_m, totals_m, _over = sk._plan_and_gather(
+                    p_mem, file_tier, mem_tier, f_lo, torch.zeros_like(m_cnt), m_lo, m_cnt,
+                    use_mem=True, use_file=False,
+                )
+                d = torch.cat([d_f, d_m], 1)
+                inv = torch.cat([inv_f, inv_m], 1)
+                o = torch.cat([torch.zeros_like(d_f), torch.full_like(d_m, sk.TIER_MEM)], 1)
+                totals = totals_f + totals_m
+            else:
+                d, inv, o, totals = d_f, inv_f, torch.zeros_like(d_f), totals_f
+        tr = trunc.expand(B)
+    elif branch == "matrix":
+        with stage("gather"):
+            d, o, inv, totals, overs = sk._plan_and_gather(
+                p_small, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem
+            )
+        tr = trunc | overs
+    if branch in ("direct", "matrix"):
+        with stage("rank"):
+            win, score, cand = sk._score_matrix(p_small if branch == "matrix" else p, d, o, inv, min_scores)
+        with stage("mention"):
+            newest = sk._batch_newest(mem_tier, d.reshape(-1), cand.reshape(-1)).reshape(d.shape)
+        with stage("select"):
+            res = sk._final_select_matrix(p, d, score, win, cand, newest, limits, min_scores, pcts)
+    else:
+        with stage("gather"):
+            d, o, inv, totals, overs = sk._plan_and_gather(p, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem)
+        with stage("rank"):
+            cd, co, csc, c_valid, c_over = sk._score_rank(p, d, o, inv, min_scores)
+        with stage("mention"):
+            newest = sk._batch_newest(mem_tier, cd.reshape(-1), c_valid.reshape(-1)).reshape(cd.shape)
+        with stage("select"):
+            res = sk._final_select(p, cd, co, csc, c_valid, newest, limits, min_scores, pcts)
+        tr = trunc | overs | c_over
+    res.update(postings_scanned=totals, truncated=tr, max_per_hash=max_per_hash, max_blocks_per_hash=max_blocks_per_hash)
+    return res, branch
+
+
+def make_queries(rng, batch: int, query_len: int, n_docs: int):
+    """bench.py's make_queries: targets uniform over docs 1..n_docs, each
+    queried by its first 20 hashes and NOISE_HASHES random ones, unique,
+    cut to query_len.  Returns (targets, qs (batch, query_len) u32, lens)."""
+    targets = rng.integers(1, n_docs + 1, batch, dtype=np.uint32)
+    qs = np.zeros((batch, query_len), np.uint32)
+    lens = np.zeros(batch, np.int32)
+    for b, t in enumerate(targets):
+        hs = doc_hashes(np.array([t], np.uint32))[0]
+        noise = rng.integers(0, 2**32, NOISE_HASHES, dtype=np.uint32)
+        q = np.unique(np.concatenate([hs[:20], noise]))[:query_len]
+        qs[b, : q.shape[0]] = q
+        lens[b] = q.shape[0]
+    return targets, qs, lens
+
+
+def stage_split(searcher, snap, params, packs, sort_path=False, log=print, label: str = "") -> dict:
+    """The program's stages on the card, batch by batch as the searcher
+    runs one (on its stream, packed input in, pinned copy-back out; "fetch"
+    is pack_outputs and the copy to the host):
+
+      * in order, over every batch of `packs`: the host clock at each
+        stage's end (host ms per stage: its Python, launches and, for
+        branch and mention, the host sync) and a CUDA event on the stream
+        there (card ms per stage: the card's time from the previous
+        stage's end to this one's, idle waits for the host included);
+      * under torch.profiler, over the first STAGE_PROFILED batches, each
+        stage in a record_function: the card's kernel time per stage
+        (busy ms), and the card's busy share.
+
+    Medians over the batches; the branches taken are counted."""
+    import torch
+
+    from .engine.segments import tier_view_for_search
+    from .ops import search_kernel as sk
+
+    dev, stream = searcher.device, searcher._stream
+    file_view = tier_view_for_search(snap.file_view, mentions=False)
+    mem_view = tier_view_for_search(snap.mem_view)
+    host_ms = {k: [] for k in STAGES}
+    card_ms = {k: [] for k in STAGES}
+    branches = {}
+
+    def one(packed, stage):
+        x = torch.from_numpy(np.ascontiguousarray(packed).view(np.int32)).to(dev)
+        out, branch = staged_search(params, file_view, mem_view, *sk.unpack_inputs(params, x), stage=stage, sort_path=sort_path)
+        with stage("fetch"):
+            host = torch.empty((x.shape[0], 2 * params.out_len + 5), dtype=torch.int32, pin_memory=True)
+            host.copy_(sk.pack_outputs(out), non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+        return branch
+
+    with torch.inference_mode(), torch.cuda.stream(stream):
+        one(packs[0], _no_stage)  # first use of this shape
+        for packed in packs:
+            marks = []
+
+            @contextlib.contextmanager
+            def stage(name):
+                yield
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(stream)
+                marks.append((name, ev, time.perf_counter()))
+
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            t0 = time.perf_counter()
+            branch = one(packed, stage)
+            branches[branch] = branches.get(branch, 0) + 1
+            prev_ev, prev_t = start, t0
+            for name, ev, t in marks:
+                host_ms[name].append((t - prev_t) * 1e3)
+                card_ms[name].append(prev_ev.elapsed_time(ev))
+                prev_ev, prev_t = ev, t
+
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for packed in packs[:STAGE_PROFILED]:
+                one(packed, lambda name: torch.profiler.record_function(f"stage:{name}"))
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    busy = {}
+    for e in ev:
+        if e.key.startswith("stage:") and getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU:
+            busy[e.key[6:]] = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3 / STAGE_PROFILED
+    dev_ms = _device_ms(ev) - sum(getattr(e, "self_device_time_total", 0) for e in ev if e.key.startswith("stage:")
+                                  and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3
+
+    def med(v):
+        return float(np.median(v)) if v else None
+
+    rec = {
+        "label": label, "batches": len(packs), "batch": int(packs[0].shape[0]), "params": vars(params),
+        "sort_path_forced": sort_path, "branches": branches,
+        "stages": {k: {"host_ms": med(host_ms[k]), "card_ms": med(card_ms[k]), "card_busy_ms": busy.get(k)}
+                   for k in STAGES if host_ms[k]},
+        "host_ms_per_batch": med([sum(v) for v in zip(*(host_ms[k] for k in STAGES if host_ms[k]))]),
+        "profile": {"batches": STAGE_PROFILED, "wall_ms_per_batch": wall / STAGE_PROFILED,
+                    "device_ms_per_batch": dev_ms / STAGE_PROFILED, "busy_share": dev_ms / wall},
+    }
+    log(f"stages{' ' + label if label else ''}: {json.dumps(rec)}")
+    return rec
+
+
 MESH_SHARDS = (1, 2, 4, 8)
 MESH_ROUNDS, MESH_BATCHES, MESH_PROFILED = 4, 20, 5
 
@@ -930,8 +1232,8 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     import torch
 
     from .engine.memseg import Segment
-    from .engine.model import SearchOptions, SegmentInfo
-    from .engine.searcher import Searcher, _pack_rows, _params_for
+    from .engine.model import SegmentInfo
+    from .engine.searcher import Searcher, _params_for
     from .engine.segments import tier_view_for_search
     from .ops import block_lookup as bl
     from .ops import search_kernel as sk
@@ -954,15 +1256,8 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     log(f"mesh: packed {list(configs)} in {json.dumps({k: round(v, 1) for k, v in report['pack_s'].items()})} s")
 
     rng = np.random.default_rng(11)
-    opts = SearchOptions(max_results=10, min_score=6, min_score_pct=10)
     params = _params_for(128)
-    single = configs["single"]
-
-    def packed_batch() -> np.ndarray:
-        th = doc_hashes(rng.integers(1, N_DOCS + 1, 256, dtype=np.uint32))
-        return _pack_rows(params, [single._row(*single.prepare_query(make_query(rng, h)), opts)[0] for h in th], 256)
-
-    packs = [packed_batch() for _ in range(MESH_BATCHES)]
+    packs = [serving_batch(configs["single"], params, rng, 256) for _ in range(MESH_BATCHES)]
 
     def run(name, packed):
         return configs[name]._fetch(configs[name]._launch(views[name], params, packed))
@@ -1048,64 +1343,121 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     return report
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=None, help="default chiprun_out/measure.json (measure_mesh.json with --mesh)")
-    ap.add_argument("--mesh", default=None, help="comma-separated shard counts: time the sharded program only")
-    args = ap.parse_args(argv)
-    if args.mesh:
-        from .utils.device import device
-
-        dev = device()
-        if dev.type != "cuda":
-            raise SystemExit(f"measure needs a card; the port's device is {dev}")
-        report = mesh_report(dev, [int(x) for x in args.mesh.split(",")])
-        out = args.out or os.path.join("chiprun_out", "measure_mesh.json")
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "w") as f:
-            json.dump(report, f, indent=1)
-        print(json.dumps(report), flush=True)
-        return 0
-    args.out = args.out or os.path.join("chiprun_out", "measure.json")
-
-    import torch
-
+def pack_10m(dev):
+    """The reference bench's corpus (10M docs x 24 hashes) packed as one
+    file tier beside an empty memory tier, as the searcher packs them;
+    returns (snapshot, seconds)."""
     from .engine.memseg import Segment
-    from .engine.model import SearchOptions, SegmentInfo
-    from .engine.searcher import Searcher, _pack_rows, _params_for
-    from .engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier, tier_view_for_search
-    from .ops import block_lookup as bl
-    from .ops import search_kernel as sk
-    from .ops.layout import to_storage, u32
-    from .utils.device import device
-
-    dev = device()
-    if dev.type != "cuda":
-        raise SystemExit(f"measure needs a card; the port's device is {dev}")
-    report = {"nvidia_smi": smi("name,power.limit"), "docs": N_DOCS}
+    from .engine.model import SegmentInfo
+    from .engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier
 
     t0 = time.perf_counter()
     hashes, docids = sorted_corpus(N_DOCS, dev)
     ids = np.arange(1, N_DOCS + 1, dtype=np.uint32)
     seg = Segment(SegmentInfo(commit_id=1), hashes, docids, ids, np.ones(N_DOCS, bool), 1, N_DOCS)
-    searcher = Searcher(dev)
     snap = SimpleNamespace(
         file_view=pack_tier([seg], FILE_SLOTS, device_mentions=False, device=dev),
         mem_view=pack_tier([], MEMORY_SLOTS, device=dev),
     )
-    del hashes, docids, seg
-    report["pack_s"] = time.perf_counter() - t0
+    return snap, time.perf_counter() - t0
+
+
+def serving_batch(searcher, params, rng, b: int) -> np.ndarray:
+    """A packed batch of b serving queries over the 10M corpus (make_query:
+    20 target hashes + NOISE_HASHES; limit 10, min_score 6, pct 10), each
+    row made by the searcher as it makes a request's."""
+    from .engine.model import SearchOptions
+    from .engine.searcher import _pack_rows
+
+    opts = SearchOptions(max_results=10, min_score=6, min_score_pct=10)
+    th = doc_hashes(rng.integers(1, N_DOCS + 1, b, dtype=np.uint32))
+    rows = [searcher._row(*searcher.prepare_query(make_query(rng, th[i])), opts)[0] for i in range(b)]
+    return _pack_rows(params, rows, b)
+
+
+def stages_report(dev, log=print) -> dict:
+    """--stages: stage_split at the 10M tier (serving batches of B = 256,
+    _params_for(128)), bench_sweep.py's postings-budget sweep there (the
+    sort path at P in SWEEP_BUDGETS, query_len 128, per_hash_cap 1024,
+    candidate_cap 256, out_len 128, make_queries' batches, limit 10,
+    min_score 6, pct 10), then stage_split at the 134M tier
+    (bench_100m.build_tier, its params and queries)."""
+    import torch
+
+    from . import bench_100m
+    from .engine.searcher import Searcher, _params_for
+    from .ops.search_kernel import SearchParams, pack_inputs_np
+
+    report = {"nvidia_smi": smi("name,power.limit"), "device": torch.cuda.get_device_name(dev)}
+    searcher = Searcher(dev)
+    rng = np.random.default_rng(11)
+    snap, report["pack_10m_s"] = pack_10m(dev)
+    params = _params_for(128)
+    report["10m"] = stage_split(searcher, snap, params, [serving_batch(searcher, params, rng, 256) for _ in range(STAGE_BATCHES)],
+                                log=log, label="10M serving")
+    report["sweep_10m"] = {}
+    for P in SWEEP_BUDGETS:
+        p = SearchParams(query_len=128, postings_budget=P, per_hash_cap=1024, candidate_cap=256, out_len=128)
+        packs = []
+        for _ in range(STAGE_BATCHES):
+            _, qs, lens = make_queries(rng, 256, 128, N_DOCS)
+            packs.append(pack_inputs_np(qs, lens, *(np.full(256, v, np.int32) for v in (10, 6, 10))))
+        report["sweep_10m"][str(P)] = stage_split(searcher, snap, p, packs, sort_path=True, log=log, label=f"10M sweep P={P}")
+    del snap
+    torch.cuda.empty_cache()
+    snap, report["build_134m"] = bench_100m.build_timed(dev, log)
+    packs = [bench_100m.pack(*bench_100m.make_queries(rng)[1:]) for _ in range(STAGE_BATCHES)]
+    report["134m"] = stage_split(searcher, snap, bench_100m.params(), packs, log=log, label="134M")
+    del snap
+    torch.cuda.empty_cache()
+    return report
+
+
+def _write(report, out) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="default chiprun_out/measure.json (measure_mesh.json with --mesh, "
+                    "measure_stages.json with --stages)")
+    ap.add_argument("--mesh", default=None, help="comma-separated shard counts: time the sharded program only")
+    ap.add_argument("--stages", action="store_true", help="time the program's stages at the 10M and 134M tiers only")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from .utils.device import device
+
+    dev = device()
+    if dev.type != "cuda":
+        raise SystemExit(f"measure needs a card; the port's device is {dev}")
+    if args.mesh:
+        _write(mesh_report(dev, [int(x) for x in args.mesh.split(",")]), args.out or os.path.join("chiprun_out", "measure_mesh.json"))
+        return 0
+    if args.stages:
+        _write(stages_report(dev), args.out or os.path.join("chiprun_out", "measure_stages.json"))
+        return 0
+
+    from .engine.searcher import Searcher, _params_for
+    from .engine.segments import tier_view_for_search
+    from .ops import block_lookup as bl
+    from .ops import search_kernel as sk
+    from .ops.layout import to_storage, u32
+
+    report = {"nvidia_smi": smi("name,power.limit"), "docs": N_DOCS}
+    snap, report["pack_s"] = pack_10m(dev)
+    searcher = Searcher(dev)
     inter = snap.file_view["inter"]
 
     rng = np.random.default_rng(11)
-    opts = SearchOptions(max_results=10, min_score=6, min_score_pct=10)
     params = _params_for(128)
 
     def packed_batch(b: int) -> np.ndarray:
-        targets = rng.integers(1, N_DOCS + 1, b, dtype=np.uint32)
-        th = doc_hashes(targets)
-        rows = [searcher._row(*searcher.prepare_query(make_query(rng, th[i])), opts)[0] for i in range(b)]
-        return _pack_rows(params, rows, b)
+        return serving_batch(searcher, params, rng, b)
 
     def run(packed):
         return searcher._fetch(searcher._launch(snap, params, packed))
@@ -1169,11 +1521,18 @@ def main(argv=None) -> int:
     del mem
     torch.cuda.empty_cache()
     report["kernels"] += [run_case(c) for c in phase1_cases(dev, g, designs=True)]
+    del snap, inter, file_view, mem_view
+    torch.cuda.empty_cache()
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps(report), flush=True)
+    # Shapes (e) and (f) over the 134M tier.
+    from . import bench_100m
+
+    snap, report["build_134m"] = bench_100m.build_timed(dev)
+    report["kernels"] += [run_case(c) for c in scale_cases(snap.file_view["inter"], scale_qpool(rng, dev), g, designs=True)]
+    del snap
+    torch.cuda.empty_cache()
+
+    _write(report, args.out or os.path.join("chiprun_out", "measure.json"))
     return 0
 
 

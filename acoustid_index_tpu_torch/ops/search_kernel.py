@@ -522,13 +522,17 @@ def pack_inputs_np(qs, lens, limits, min_scores, pcts):
     )
 
 
+def unpack_inputs(params: SearchParams, packed_in):
+    """(queries, q_lens, limits, min_scores, pcts) as int64 values from the
+    int32 view of pack_inputs_np's array."""
+    Q = params.query_len
+    # The reference reads the scalar columns as int32 (astype): the signed
+    # view of the storage.
+    return (u32(packed_in[:, :Q]), *(packed_in[:, Q + k].to(torch.int64) for k in range(4)))
+
+
 @torch.inference_mode()
 def search_segments_batch_packed_io(params: SearchParams, file_tier, mem_tier, packed_in):
     """Batched search with both sides packed: `packed_in` is the int32 view
     of pack_inputs_np's array on the tiers' device; returns pack_outputs."""
-    Q = params.query_len
-    qs = u32(packed_in[:, :Q])
-    # The reference reads the scalar columns as int32 (astype): the signed
-    # view of the storage.
-    lens, limits, min_scores, pcts = (packed_in[:, Q + k].to(torch.int64) for k in range(4))
-    return pack_outputs(_search_batch_impl(params, file_tier, mem_tier, qs, lens, limits, min_scores, pcts))
+    return pack_outputs(_search_batch_impl(params, file_tier, mem_tier, *unpack_inputs(params, packed_in)))

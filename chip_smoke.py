@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of acoustid_index_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py    # one card, ~8 minutes; exits 2 without CUDA
+    python3 chip_smoke.py    # one card, ~9 minutes; exits 2 without CUDA
 
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
@@ -49,6 +49,25 @@ Phases, each fatal on failure:
      (16, 2) beside K1's scan, search and torch.searchsorted; bit-equal to
      the plain version on every input set, then timed cold and warm as phase
      1 times, with the bytes each K3/K4 design reads.
+  1d. the 134M scale point (acoustid_index_tpu_torch/bench_100m.py, the
+     counterpart of the reference's bench_100m.py): 2^27 docs x 8 hashes =
+     2^30 postings built on the card as one interleaved tier of 2^31
+     entries (8 GiB; build time and peak allocation logged).  K1 at shape
+     (e) (its 4 MiB top index, a B=256 batch's 16,384 landing lookups) and
+     K1 stride 2 and K2 at (f) (the 8 GiB tier, 16,384 + 2,048 lookups) and
+     at (g) (the same tier with shape (c)'s lookup mix, 32,768 + 2,048, every
+     lane live), each bit-equal to its plain version on every input set,
+     then timed as phase 1 times.  Then, with every launch counter at 0,
+     bench_100m.run: two batches of 256 through Searcher._launch / _fetch
+     and a boundary batch (the last 1,024 positions, bands 2-7, hashes
+     0xFFFFFFFC-0xFFFFFFFF), self-retrieval 1.0 at score 6 and every
+     answer equal to tests/oracle.py over the analytic sub-oracle
+     (bench_100m.oracle_postings); 100 timed batches, 100 pipelined, a profiled capture; 512 queries
+     through BatchingSearcher.submit from 32 threads, each checked the same
+     way.  K1 and K2 must have launched on this path, the scans never
+     (launches_by_path "scale_134m").  Then the stage split at 134M
+     (measure.stage_split).  Last the tier is freed: the card's allocated
+     memory must come back within 64 MiB of its level before the phase.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
      to disk through merge_segments_auto (it must take the device merge,
@@ -386,6 +405,65 @@ def phase1c_probes(dev):
     torch.cuda.empty_cache()
     log(f"phase1c: done in {time.perf_counter() - t_phase:.1f} s")
     return launches, results
+
+
+# ---------------------------------------------------------------- phase 1d
+
+
+def phase1d_scale(dev):
+    """The 134M scale point (acoustid_index_tpu_torch/bench_100m.py): the
+    tier built on the card; K1 and K2 at shapes (e)-(g) bit-equal to
+    their plain versions, then timed; with the launch counters at 0, the
+    bench's run checked against the analytic oracle; the stage split; the
+    tier freed.  Returns (launches on the path, kernel records, figures)."""
+    import numpy as np
+    import torch
+
+    from acoustid_index_tpu_torch import bench_100m
+    from acoustid_index_tpu_torch import measure as m
+    from acoustid_index_tpu_torch.engine.searcher import Searcher
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from oracle import OracleSegment, oracle_search
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    snap, fig = bench_100m.build_timed(dev, lambda msg: log(f"phase1d: {msg}"))
+    check(snap.file_view["inter"].numel() == 2**31 and snap.file_view["inter"].is_cuda,
+          f"the 134M tier holds {snap.file_view['inter'].numel()} entries on {snap.file_view['inter'].device}")
+
+    rng = np.random.default_rng(12)
+    g = torch.Generator(device=dev).manual_seed(12)
+    cases = m.scale_cases(snap.file_view["inter"], m.scale_qpool(rng, dev), g)
+    results = [m.run_case(c, log) for c in cases]  # each bit-equal to the plain version first
+    del cases
+    torch.cuda.empty_cache()
+
+    def oracle(q):
+        return oracle_search([OracleSegment(bench_100m.oracle_postings(q), {})], q, limit=bench_100m.LIMIT,
+                             min_score=bench_100m.MIN_SCORE, pct=bench_100m.PCT)
+
+    for k in bl.LAUNCHES:
+        bl.LAUNCHES[k] = 0
+    fig.update(bench_100m.run(dev, snap, oracle, lambda msg: log(f"phase1d: {msg}")))
+    torch.cuda.synchronize()
+    launches = dict(bl.LAUNCHES)
+    check_launches(launches, "phase1d")
+    log(f"phase1d: launches on the 134M path {launches}")
+
+    packs = [bench_100m.pack(*bench_100m.make_queries(rng)[1:]) for _ in range(m.STAGE_BATCHES)]
+    fig["stages"] = m.stage_split(Searcher(dev), snap, bench_100m.params(), packs, log=lambda msg: log(f"phase1d: {msg}"),
+                                  label="134M")
+    del snap
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left <= 64 * 2**20, f"phase1d: {left / 2**20:.1f} MiB of the 134M phase still allocated after it")
+    fig["allocated_after_mib"] = left / 2**20
+    fig["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase1d: the tier freed ({left / 2**20:.1f} MiB above the level before the phase); done in {fig['phase_s']:.1f} s")
+    return launches, results, fig
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1488,6 +1566,8 @@ def main() -> int:
     merge = phase1b_merge(dev)
     probe_launches, probe_kern = phase1c_probes(dev)
     kern += probe_kern
+    scale_launches, scale_kern, scale = phase1d_scale(dev)
+    kern += scale_kern
     log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
     t0 = time.perf_counter()
     base_seg = BaseSegment(*sorted_corpus(N_DOCS, dev), N_DOCS)
@@ -1500,7 +1580,7 @@ def main() -> int:
     model = phase2b_model(dev, N_DOCS, base_seg)
     del base_seg
     paths = (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"]),
-             ("mesh serving", mesh["launches"]), ("model forward", model["launches"]))
+             ("mesh serving", mesh["launches"]), ("model forward", model["launches"]), ("134M scale", scale_launches))
     for path, launches in paths:
         check(launches["block_count"] > 0, f"K1 block_count never launched on the {path} path")
         check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
@@ -1512,7 +1592,7 @@ def main() -> int:
     check(not ref_mods, f"modules of the JAX package or of probes/ were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
-    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase2": serving, "phase2c": mesh,
+    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase1d": scale, "phase2": serving, "phase2c": mesh,
               "phase2d": replica, "phase2b": model, "phase3": cli_stats, "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -1525,7 +1605,7 @@ def main() -> int:
                 "mesh_serving": mesh["launches"][name],
                 "replica": replica["A"]["launches"][name] + replica["B"]["launches"][name],
                 "model_forward": model["launches"][name],
-                "probes": probe_launches[name]}
+                "probes": probe_launches[name], "scale_134m": scale_launches[name]}
 
     def of(kernel):
         return [r for r in kern if r["kernel"] == kernel]
