@@ -1231,8 +1231,6 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     on one 10M-doc file tier and an empty memory tier (module docstring)."""
     import torch
 
-    from .engine.memseg import Segment
-    from .engine.model import SegmentInfo
     from .engine.searcher import Searcher, _params_for
     from .engine.segments import tier_view_for_search
     from .ops import block_lookup as bl
@@ -1241,10 +1239,7 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     from .parallel.serving import ShardedBatchingSearcher
 
     report = {"nvidia_smi": smi("name,power.limit"), "docs": N_DOCS, "batch": 256, "shards": list(shards)}
-    hashes, docids = sorted_corpus(N_DOCS, dev)
-    ids = np.arange(1, N_DOCS + 1, dtype=np.uint32)
-    seg = Segment(SegmentInfo(commit_id=1), hashes, docids, ids, np.ones(N_DOCS, bool), 1, N_DOCS)
-    del hashes, docids
+    seg = corpus_segment(dev)
     configs = {"single": Searcher(dev)}
     configs.update({f"mesh{n}": ShardedBatchingSearcher(sh.make_mesh(n, dev)) for n in shards})
     views, report["pack_s"] = {}, {}
@@ -1343,19 +1338,28 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     return report
 
 
-def pack_10m(dev):
-    """The reference bench's corpus (10M docs x 24 hashes) packed as one
-    file tier beside an empty memory tier, as the searcher packs them;
-    returns (snapshot, seconds)."""
+def corpus_segment(dev, n_docs: int = N_DOCS):
+    """Docs 1..n_docs of the reference bench's corpus as one file Segment
+    (sorted on `dev`, held on the host)."""
     from .engine.memseg import Segment
     from .engine.model import SegmentInfo
+
+    hashes, docids = sorted_corpus(n_docs, dev)
+    ids = np.arange(1, n_docs + 1, dtype=np.uint32)
+    return Segment(SegmentInfo(commit_id=1), hashes, docids, ids, np.ones(n_docs, bool), 1, n_docs)
+
+
+def pack_10m(dev, n_docs: int = N_DOCS):
+    """The reference bench's corpus (10M docs x 24 hashes; docs 1..n_docs)
+    packed as one file tier beside an empty memory tier, as the searcher
+    packs them; returns (snapshot, seconds).  The snapshot's `file` holds
+    the Segment, for another searcher to pack."""
     from .engine.segments import FILE_SLOTS, MEMORY_SLOTS, pack_tier
 
     t0 = time.perf_counter()
-    hashes, docids = sorted_corpus(N_DOCS, dev)
-    ids = np.arange(1, N_DOCS + 1, dtype=np.uint32)
-    seg = Segment(SegmentInfo(commit_id=1), hashes, docids, ids, np.ones(N_DOCS, bool), 1, N_DOCS)
+    seg = corpus_segment(dev, n_docs)
     snap = SimpleNamespace(
+        file=(seg,),
         file_view=pack_tier([seg], FILE_SLOTS, device_mentions=False, device=dev),
         mem_view=pack_tier([], MEMORY_SLOTS, device=dev),
     )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of acoustid_index_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py    # one card, ~9 minutes; exits 2 without CUDA
+    python3 chip_smoke.py    # one card, ~11 minutes; exits 2 without CUDA
 
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
@@ -104,7 +104,7 @@ Phases, each fatal on failure:
   2d. the replicated deployment: a durable coordinator through the CLI
      (`python -m acoustid_index_tpu_torch.main --coordinator --coordinator-dir
      D --port 0`) and replicas A and B through build_server in this process
-     (--coordinator-url).  1M docs of the bench's shape go in as msgpack
+     (--coordinator-url).  500K docs of the bench's shape go in as msgpack
      `POST /main/_update` entries of 50K docs through A (each acknowledged
      once A has applied it); A's checkpoints must merge on the card with no
      host fallback.  512 queries of phase 2's shape on A equal the oracle.
@@ -130,9 +130,20 @@ Phases, each fatal on failure:
      session on its legacy port whose answer equals the HTTP search, one
      capture on its profiler port whose trace holds K1 and K2 (searches of
      the 12,000-doc index run meanwhile), and stops on SIGTERM.
+  4. the headline bench (acoustid_index_tpu_torch/bench.py, the counterpart
+     of the root bench.py): with every launch counter at 0,
+     bench.main(["--seconds", "3", "--no-134m", "--out",
+     "chiprun_out/bench_smoke.json"]) at the root bench's widths (its 134M
+     step is phase 1d's): the parity gate on the card, the 10M-doc kernel
+     phase, mesh 1, 2M docs end to end through both fronts, the stubbed
+     host-only windows, HTTP bulk ingest, the read/write mix.  It must exit
+     0 with no *_error key; its hit rates >= 0.95, its miss rates 0,
+     e2e_rw_segments > 1; its stubbed windows may launch no K1/K2 and run no
+     program, and K1 and K2 must launch on its path (launches_by_path
+     "bench").
 
-The run fails if jax, any module of acoustid_index_tpu or of probes/ was
-imported.
+Each phase's seconds are logged.  The run fails if jax, any module of
+acoustid_index_tpu or of probes/ was imported.
 The last three lines of stdout are the card's nvidia-smi line, a JSON
 object of per-kernel results, and {"ok": true, "device": {...}}; every
 phase's figures also go to chiprun_out/chip_smoke.json.
@@ -167,15 +178,16 @@ MODEL_BATCH = 256  # phase 2b: queries of the model wrapper's forward
 MESH_SHARDS = 8  # phase 2c: shards of the sharded server (slices of the one card)
 CLI_SHARDS, CLI_DOCS = 4, 12_000  # phase 3: the CLI's --mesh-shards, and the docs of its pre-built index
 CLI_RESIDENT_MAX_BYTES = 64 * 1024  # phase 3: its file tier interleaves (~73K entries per shard)
-# Phase 2d: docs written through the changelog (the bench's 10M cut to 1M:
-# every doc passes the host's change path -- decode, the coordinator's
-# append, the consumer's reads, a commit that repacks the memory tier -- at
-# ~13-17 s per 100K docs); docs per _update entry (6.8 MB of msgpack: a
+# Phase 2d: docs written through the changelog (the bench's 10M cut to
+# 500K: every doc passes the host's change path -- decode, the
+# coordinator's append, the consumer's reads, a commit that repacks the
+# memory tier -- at ~13-17 s per 100K docs, and phase 4 needs the time the
+# cut from 1M frees); docs per _update entry (6.8 MB of msgpack: a
 # 100K-doc entry took 29.5 s to acknowledge when the coordinator compacted
 # its log under it, against the 30 s read-your-writes deadline); A's and
 # B's checkpoint threshold in postings (each checkpoint merges >= 10^6
 # postings on the card); single writes timed from B's acknowledgement to A.
-REPLICA_DOCS, REPLICA_ENTRY_DOCS = 1_000_000, 50_000
+REPLICA_DOCS, REPLICA_ENTRY_DOCS = 500_000, 50_000
 REPLICA_CHECKPOINT = 1_200_000
 REPLICA_LAG_WRITES = 10
 
@@ -1457,6 +1469,46 @@ def phase3_cli():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+BENCH_ARGS = ["--seconds", "3", "--no-134m"]  # phase 1d ran the 134M step at full size
+BENCH_MISS_RATES = ("e2e_miss_rate", "e2e_pipeline_miss_rate", "e2e_native_miss_rate", "e2e_rw_miss_rate")
+BENCH_STUBBED = ("e2e_native_hostonly", "e2e_pyhttp_hostonly", "e2e_hostonly")
+
+
+def phase4_bench():
+    """The headline bench (acoustid_index_tpu_torch/bench.py, the counterpart
+    of the root bench.py) at its widths, its windows cut to 3 s, with the
+    launch counters at 0.  Returns (launches on its path, its detail)."""
+    from acoustid_index_tpu_torch import bench
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+
+    out = os.path.join(HERE, "chiprun_out", "bench_smoke.json")
+    for k in bl.LAUNCHES:
+        bl.LAUNCHES[k] = 0
+    rc = bench.main(BENCH_ARGS + ["--out", out])
+    launches = dict(bl.LAUNCHES)
+    with open(out) as f:
+        detail = json.load(f)
+    errors = sorted(k for k in detail if k.endswith("_error"))
+    check(rc == 0 and not errors, f"phase4: the bench exited {rc}: {[(k, detail[k]) for k in errors]}")
+    check(detail.get("parity_gate") == "ok", "phase4: the parity gate did not pass")
+    for k in ("self_retrieval_hit_rate", "sharded_hit_rate"):
+        check(detail[k] >= 0.95, f"phase4: {k} {detail[k]} < 0.95")
+    for k in BENCH_MISS_RATES:
+        check(detail[k] == 0, f"phase4: {k} {detail[k]}")
+    check(detail["e2e_rw_segments"] > 1, f"phase4: e2e_rw_segments {detail['e2e_rw_segments']}: no S > 1 state")
+    stubbed = detail["stubbed_windows"]
+    check(sorted(stubbed) == sorted(BENCH_STUBBED), f"phase4: stubbed windows {sorted(stubbed)}")
+    for label, moved in stubbed.items():
+        check(not any(moved.values()), f"phase4: the stubbed window {label} ran the card: {moved}")
+    check_launches(launches, "phase4")
+    log(f"phase4: the bench passed its checks; launches on its path {launches}; seconds per phase "
+        + json.dumps({k: round(v, 1) for k, v in detail["phase_s"].items()}))
+    return launches, detail
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1562,22 +1614,31 @@ def main() -> int:
     native_built = start_native_builds()
     start_kernel_builds()
 
-    kern = phase1_kernels(dev)
-    merge = phase1b_merge(dev)
-    probe_launches, probe_kern = phase1c_probes(dev)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"{name}: {phase_s[name]:.1f} s")
+        return out
+
+    kern = timed("phase1", phase1_kernels, dev)
+    merge = timed("phase1b", phase1b_merge, dev)
+    probe_launches, probe_kern = timed("phase1c", phase1c_probes, dev)
     kern += probe_kern
-    scale_launches, scale_kern, scale = phase1d_scale(dev)
+    scale_launches, scale_kern, scale = timed("phase1d", phase1d_scale, dev)
     kern += scale_kern
     log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
     t0 = time.perf_counter()
     base_seg = BaseSegment(*sorted_corpus(N_DOCS, dev), N_DOCS)
     oracle_sort_s = time.perf_counter() - t0
-    serving, handoff = phase2_serving(N_DOCS, N_REQUESTS, native_built, base_seg)
+    serving, handoff = timed("phase2", phase2_serving, N_DOCS, N_REQUESTS, native_built, base_seg)
     serving["oracle_sort_s"] = oracle_sort_s
-    mesh = phase2c_mesh(handoff, N_DOCS, native_built, base_seg)
+    mesh = timed("phase2c", phase2c_mesh, handoff, N_DOCS, native_built, base_seg)
     del handoff
-    replica = phase2d_replicas(dev, REPLICA_DOCS, REPLICA_ENTRY_DOCS, N_REQUESTS)
-    model = phase2b_model(dev, N_DOCS, base_seg)
+    replica = timed("phase2d", phase2d_replicas, dev, REPLICA_DOCS, REPLICA_ENTRY_DOCS, N_REQUESTS)
+    model = timed("phase2b", phase2b_model, dev, N_DOCS, base_seg)
     del base_seg
     paths = (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"]),
              ("mesh serving", mesh["launches"]), ("model forward", model["launches"]), ("134M scale", scale_launches))
@@ -1586,14 +1647,16 @@ def main() -> int:
         check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
         for scan in ("block_count_scan", "block_count_emit_scan"):
             check(launches[scan] == 0, f"{scan} launched {launches[scan]} times on the {path} path")
-    cli_stats = phase3_cli()
+    cli_stats = timed("phase3", phase3_cli)
+    bench_launches, bench_detail = timed("phase4", phase4_bench)
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("acoustid_index_tpu", "probes"))
     check(not ref_mods, f"modules of the JAX package or of probes/ were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
     detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase1d": scale, "phase2": serving, "phase2c": mesh,
-              "phase2d": replica, "phase2b": model, "phase3": cli_stats, "total_s": total, "nvidia_smi": smi}
+              "phase2d": replica, "phase2b": model, "phase3": cli_stats, "phase4": bench_detail, "phase_s": phase_s,
+              "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1605,7 +1668,7 @@ def main() -> int:
                 "mesh_serving": mesh["launches"][name],
                 "replica": replica["A"]["launches"][name] + replica["B"]["launches"][name],
                 "model_forward": model["launches"][name],
-                "probes": probe_launches[name], "scale_134m": scale_launches[name]}
+                "probes": probe_launches[name], "scale_134m": scale_launches[name], "bench": bench_launches[name]}
 
     def of(kernel):
         return [r for r in kern if r["kernel"] == kernel]
