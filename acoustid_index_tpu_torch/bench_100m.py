@@ -67,18 +67,27 @@ BOUNDARY_NOISE = (0xFFFFFFFC, 0xFFFFFFFD, 0xFFFFFFFE, 0xFFFFFFFF)
 CHUNK = 1 << 24  # inter entries per build step (int64 intermediates of 128 MiB)
 ROUNDS, PIPELINED, IN_FLIGHT, PROFILED = 100, 100, 4, 5
 SUBMIT_QUERIES, THREADS = 512, 32
+# Through the server: docs per _bulk body (16,200,018 bytes of msgpack, under
+# server/http.py's 16 MiB body cap), bulk clients (well under its listen
+# backlog of 128), and the host RAM the load needs per posting.
+BODY_DOCS, LOAD_THREADS = 450_000, 4
+CHECKPOINT_WAIT_S = 1800  # the load's checkpoint must land within this after its last body
+HOST_BYTES_PER_POSTING = 72  # the load's measured peak was 64.8 GiB at 2^30 postings
 
 
 # ---- the corpus: bench_100m.py's functions, copied (tests/test_torch_scale.py
 # holds them equal to the originals) ----
 
 
+_REV8 = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint32)
+
+
 def np_bitrev27(x: np.ndarray) -> np.ndarray:
-    v = x.astype(np.uint64)
-    r = np.zeros_like(v)
-    for b in range(DOC_BITS):
-        r |= ((v >> b) & 1) << (DOC_BITS - 1 - b)
-    return r.astype(np.uint32)
+    """The low 27 bits of x reversed: bench_100m.py's bit loop, as four
+    byte-table lookups of a 32-bit reversal shifted down by 5."""
+    v = np.asarray(x).astype(np.uint64).astype(np.uint32)
+    r = _REV8[v & 0xFF] << 24 | _REV8[(v >> 8) & 0xFF] << 16 | _REV8[(v >> 16) & 0xFF] << 8 | _REV8[v >> 24]
+    return r >> np.uint32(32 - DOC_BITS)
 
 
 def _f_np(p: np.ndarray, j: int) -> np.ndarray:
@@ -98,8 +107,13 @@ def _f_np(p: np.ndarray, j: int) -> np.ndarray:
 
 def doc_hashes_np(doc_ids: np.ndarray) -> np.ndarray:
     """The 8 hashes of each doc (doc ids are 1-based)."""
-    p = np_bitrev27(doc_ids - 1)  # position within each band
-    out = np.empty((doc_ids.shape[0], HASHES_PER_DOC), np.uint32)
+    return position_hashes(np_bitrev27(doc_ids - 1))
+
+
+def position_hashes(p: np.ndarray) -> np.ndarray:
+    """The 8 hashes of the doc at each sorted position p (its doc id is
+    bitrev27(p) + 1)."""
+    out = np.empty((p.shape[0], HASHES_PER_DOC), np.uint32)
     for j in range(HASHES_PER_DOC):
         out[:, j] = (np.uint64(j) * BAND + _f_np(p, j)).astype(np.uint32)
     return out
@@ -205,6 +219,46 @@ def oracle_postings(query_hashes, p0: int = 0, p1: int = N_DOCS):
     lo = _first_position(off, j, p0, p1)
     hi = _first_position(off + np.uint64(1), j, p0, p1)
     return [(int(hh), int(d) + 1) for hh, a, b in zip(h, lo, hi) for d in np_bitrev27(np.arange(a, b))]
+
+
+def _f(p: int, j: int) -> int:
+    """_f_np at one position."""
+    if ((p >> 6) + j) % (1 << 15) == 0:
+        return (p & ~63) * 4
+    if (p + j) % 8 == 7 and p > 0:
+        return (p - 1) * 4
+    return p * 4
+
+
+class OracleCorpus:
+    """The positions [p0, p1) of the corpus as one segment of
+    tests/oracle.py's oracle_search (duck-typed: postings(h), and `docs`
+    with membership), every doc alive: oracle_postings one hash at a time,
+    in scalar arithmetic (a query's noise hashes cost microseconds: every
+    hash of the corpus has an in-band offset divisible by 4)."""
+
+    def __init__(self, p0: int = 0, p1: int = N_DOCS):
+        self.p0, self.p1, self.docs = p0, p1, self
+
+    def __contains__(self, docid) -> bool:
+        return 1 <= docid <= N_DOCS and self.p0 <= int(np_bitrev27(np.asarray([docid - 1]))[0]) < self.p1
+
+    def _first(self, target: int, j: int) -> int:
+        lo, count = self.p0, self.p1 - self.p0
+        while count > 0:
+            step = count // 2
+            if _f(lo + step, j) < target:
+                lo, count = lo + step + 1, count - step - 1
+            else:
+                count = step
+        return lo
+
+    def postings(self, h):
+        j, off = h >> 29, h & (BAND - 1)
+        if off % 4:
+            return []
+        lo, hi = self._first(off, j), self._first(off + 1, j)
+        return (np_bitrev27(np.arange(lo, hi)) + np.uint32(1)).tolist() if hi > lo else []
 
 
 # ---- queries and checks ----
@@ -430,9 +484,389 @@ def run(dev, snap, oracle=None, log=print) -> dict:
     return rep
 
 
+# ---- through the front door: the operator's bulk load, checkpoint and restart ----
+
+
+def bulk_body(q0: int, q1: int) -> bytes:
+    """The docs at positions [q0, q1) as one msgpack POST /:index/_bulk body
+    (server/api.decode_bulk_request): ids and hashes as little-endian u32
+    bin columns, fixed width 8."""
+    import msgpack
+
+    p = np.arange(q0, q1, dtype=np.int64)
+    ids = np_bitrev27(p) + np.uint32(1)
+    return msgpack.packb({"i": ids.astype("<u4").tobytes(), "h": position_hashes(p).astype("<u4").tobytes(),
+                          "k": HASHES_PER_DOC})
+
+
+def _meminfo_bytes(key: str) -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+class _RssPeak:
+    """The largest resident set of this process, sampled every `period` s
+    on a thread from start() to stop() (VmHWM cannot be reset everywhere)."""
+
+    def __init__(self, period: float = 0.1):
+        self.period, self.peak, self._stop = period, 0, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="rss-peak")
+
+    @staticmethod
+    def resident() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            self.peak = max(self.peak, self.resident())
+
+    def start(self) -> "_RssPeak":
+        self.peak = self.resident()
+        self._thread.start()
+        return self
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        return max(self.peak, self.resident())
+
+
+def _dir_bytes(path: str) -> int:
+    """Bytes of the files in `path` (a file deleted meanwhile counts 0)."""
+    total = 0
+    for f in os.listdir(path) if os.path.isdir(path) else ():
+        try:
+            total += os.path.getsize(os.path.join(path, f))
+        except FileNotFoundError:
+            pass
+    return total
+
+
+def _span_totals(trace_dir: str) -> dict:
+    """{span name: [total ms, count, longest ms]} of the host spans
+    (utils/profiling.trace) in the one Chrome trace under trace_dir."""
+    (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            tot = out.setdefault(e["name"], [0.0, 0, 0.0])
+            tot[0] += e["dur"] / 1e3
+            tot[1] += 1
+            tot[2] = max(tot[2], e["dur"] / 1e3)
+    return out
+
+
+def _connect(port: int):
+    """A keep-alive client socket to 127.0.0.1:port for bench._roundtrip."""
+    import socket
+
+    conn = socket.create_connection(("127.0.0.1", port), timeout=3600)
+    conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return conn
+
+
+def _post_bodies(port: int, p0: int, p1: int, body_docs: int, threads: int) -> dict:
+    """POST the docs of positions [p0, p1) as _bulk bodies of body_docs docs,
+    taken in position order by `threads` clients on keep-alive sockets."""
+    from .bench import _roundtrip
+
+    starts = iter(range(p0, p1, body_docs))
+    lock, errors, sent = threading.Lock(), [], [0, 0]
+
+    def client():
+        conn = _connect(port)
+        try:
+            while not errors:
+                with lock:
+                    q0 = next(starts, None)
+                if q0 is None:
+                    return
+                body = bulk_body(q0, min(q0 + body_docs, p1))
+                status, resp = _roundtrip(conn, b"POST", b"/main/_bulk", body)
+                if status != 200:
+                    errors.append(f"_bulk of positions [{q0}, ...): HTTP {status} {resp[:200]!r}")
+                    return
+                with lock:
+                    sent[0] += 1
+                    sent[1] += len(body)
+        except Exception as exc:  # noqa: BLE001 -- raised below
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    ts = [threading.Thread(target=client, name=f"bulk-client-{k}") for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errors:
+        raise RuntimeError(f"bulk load failed: {errors[:3]}")
+    return {"bodies": sent[0], "body_bytes": sent[1]}
+
+
+def _index(mi):
+    ref = mi._get_ref("main")
+    try:
+        return ref.index
+    finally:
+        mi._release_ref(ref)
+
+
+def _server_args(data_dir: str, postings: int):
+    """The CLI's flags for the load: the maintenance thread's own threshold
+    checkpoint takes the whole load as one file segment (threshold one below
+    the corpus's postings, no age trigger); the native search front on a
+    free port."""
+    from . import main as cli
+
+    return cli.build_parser().parse_args(
+        ["--dir", data_dir, "--host", "127.0.0.1", "--port", "0", "--checkpoint-threshold", str(postings - 1),
+         "--checkpoint-age-ms", "0", "--search-port", "-1"])
+
+
+def load_through_server(dev, data_dir: str, p0: int = 0, p1: int = N_DOCS, body_docs: int = BODY_DOCS, log=print):
+    """The operator's bulk load of positions [p0, p1) through the CLI's own
+    server (main.build_server over data_dir): PUT /main, the corpus as
+    msgpack _bulk bodies from LOAD_THREADS clients, the maintenance thread's
+    threshold checkpoint (one file segment; every merge of the load counted
+    by route, a host fallback fails the load), then the server stopped and
+    started again on the same directory and timed to its first answered
+    _search.  Returns (the restarted server's build_server tuple, serving;
+    stop it with main.stop_server, and the figures).  The load and the
+    restart run under a profiler capture whose spans (merge, checkpoint,
+    pack, upload) are in the figures, beside the seconds of each step, the
+    peak host resident set, the card's peak allocation, and the bytes of
+    the bodies, the oplog and the segment file.  Raises when the host has
+    less free RAM than HOST_BYTES_PER_POSTING per posting, or on any check
+    that fails."""
+    import tempfile
+
+    import torch
+
+    from . import main as cli
+    from .bench import _roundtrip
+    from .engine import filefmt, manifest
+    from .utils import profiling
+
+    postings = HASHES_PER_DOC * (p1 - p0)
+    need, avail = HOST_BYTES_PER_POSTING * postings, _meminfo_bytes("MemAvailable")
+    if avail < need:
+        raise RuntimeError(f"the load of {postings} postings through the server needs {need / 2**30:.1f} GiB of "
+                           f"host RAM ({HOST_BYTES_PER_POSTING} bytes per posting); {avail / 2**30:.1f} GiB available")
+    card = dev.type == "cuda"
+    fig = {"docs": p1 - p0, "postings": postings, "positions": [p0, p1], "body_docs": body_docs, "threads": LOAD_THREADS,
+           "host_available_gib": avail / 2**30, "host_needed_gib": need / 2**30}
+    if card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    rss = _RssPeak().start()
+
+    args = _server_args(data_dir, postings)
+    served = cli.build_server(args)
+    server, mi = served[0], served[1]
+    try:
+        server.serve_background()
+        conn = _connect(server.port)
+        status, resp = _roundtrip(conn, b"PUT", b"/main")
+        conn.close()
+        if status != 200:
+            raise RuntimeError(f"PUT /main: HTTP {status} {resp[:200]!r}")
+        index = _index(mi)
+        oplog_dir, seg_dir = os.path.join(index.path, "oplog"), os.path.join(index.path, "data")
+        oplog_max = [0]
+
+        with tempfile.TemporaryDirectory(prefix="bench_100m_load_") as trace_dir:
+            with profiling.capture(trace_dir):
+                t0 = time.perf_counter()
+                fig.update(_post_bodies(server.port, p0, p1, body_docs, LOAD_THREADS))
+                fig["load_s"] = time.perf_counter() - t0
+                log(f"bench_100m: {fig['bodies']} _bulk bodies ({fig['body_bytes'] / 2**30:.2f} GiB) of {p1 - p0} docs "
+                    f"posted from {LOAD_THREADS} clients in {fig['load_s']:.1f} s = {(p1 - p0) / fig['load_s']:.0f} docs/s")
+                t1 = time.perf_counter()
+                while True:
+                    snap = index.acquire_reader()
+                    merges = index.merge_counts.as_dict()
+                    if merges["fallback"]:
+                        raise RuntimeError(f"a merge of the load fell back to the host: {merges}")
+                    if not snap.memory and snap.file:
+                        break
+                    oplog_max[0] = max(oplog_max[0], _dir_bytes(oplog_dir))
+                    if time.perf_counter() - t1 > CHECKPOINT_WAIT_S:
+                        raise RuntimeError(f"no checkpoint within {CHECKPOINT_WAIT_S} s of the load: {len(snap.memory)} memory "
+                                           f"segments, merges {merges}")
+                    time.sleep(0.1)
+                fig["checkpoint_wait_s"] = time.perf_counter() - t1
+                del snap
+            fig["load_spans"] = _span_totals(trace_dir)
+        infos = manifest.read_manifest(seg_dir)
+        fig["merges"] = index.merge_counts.as_dict()
+        if len(infos) != 1 or fig["merges"]["device"] < 1 or fig["merges"]["fallback"]:
+            raise RuntimeError(f"the load left {len(infos)} file segments, merges by route {fig['merges']}")
+        fig["segment_file_bytes"] = filefmt.segment_file_size(seg_dir, infos[0])
+        fig["oplog_bytes_peak"] = oplog_max[0]
+        if card:
+            fig["load_card_peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        log(f"bench_100m: the threshold checkpoint took the load as one file segment of {fig['segment_file_bytes']} "
+            f"bytes {fig['checkpoint_wait_s']:.1f} s after the last body; merges by route {fig['merges']}; spans "
+            f"{json.dumps({k: [round(v[0], 1), v[1], round(v[2], 1)] for k, v in fig['load_spans'].items()})}")
+        del index
+    except BaseException:
+        rss.stop()
+        raise
+    finally:
+        cli.stop_server(*served)
+    del served, server, mi
+    fig["oplog_bytes_after"] = _dir_bytes(oplog_dir)  # what the restart replays
+
+    # Restart on the same directory, timed to the first answered _search.
+    if card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    rng = np.random.default_rng(5)
+    target, qs, lens = make_queries(rng, 1, p0, p1)
+    body = json.dumps({"query": qs[0, : lens[0]].tolist(), "limit": LIMIT, "min_score": MIN_SCORE,
+                       "score_pct": PCT, "timeout": 600_000}).encode()
+    with tempfile.TemporaryDirectory(prefix="bench_100m_restart_") as trace_dir:
+        with profiling.capture(trace_dir):
+            t0 = time.perf_counter()
+            served = cli.build_server(args)
+            fig["reopen_s"] = time.perf_counter() - t0
+            try:
+                served[0].serve_background()
+                conn = _connect(served[0].port)
+                status, resp = _roundtrip(conn, b"POST", b"/main/_search", body, b"application/json")
+                fig["restart_s"] = time.perf_counter() - t0
+                conn.close()
+            except BaseException:
+                rss.stop()
+                cli.stop_server(*served)
+                raise
+        fig["restart_spans"] = _span_totals(trace_dir)
+    try:
+        results = json.loads(resp)["results"] if status == 200 else None
+        if not results or results[0]["id"] != int(target[0]):
+            raise RuntimeError(f"the first search after the restart answered HTTP {status} {resp[:200]!r}")
+        snap = _index(served[1]).ensure_views(_index(served[1]).acquire_reader())
+        inter = snap.file_view.get("inter")
+        if inter is None or inter.device.type != dev.type or len(snap.file) != 1 or snap.memory:
+            raise RuntimeError(f"after the restart: {len(snap.file)} file segments, {len(snap.memory)} memory "
+                               f"segments, file tier {'plain' if inter is None else inter.device}")
+        fig["file_tier_entries"] = int(inter.numel())
+        del snap, inter
+        if card:
+            fig["restart_card_peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        fig["peak_rss_gib"] = rss.stop() / 2**30
+        log(f"bench_100m: restarted in {fig['restart_s']:.1f} s to the first answered _search (build_server "
+            f"{fig['reopen_s']:.1f} s); file tier {fig['file_tier_entries']} interleaved entries on {dev}; spans "
+            f"{json.dumps({k: [round(v[0], 1), v[1], round(v[2], 1)] for k, v in fig['restart_spans'].items()})}; oplog "
+            f"{fig['oplog_bytes_after']} bytes replayed; peak RSS {fig['peak_rss_gib']:.1f} GiB")
+    except BaseException:
+        rss.stop()
+        cli.stop_server(*served)
+        raise
+    return served, fig
+
+
+def search_http(port: int, queries, threads: int = THREADS):
+    """POST each query (a list of hashes) to /main/_search on `port` from
+    `threads` keep-alive clients, with the reference bench's limit,
+    min_score and pct; returns (the raw bodies in query order, wall s)."""
+    from .bench import _roundtrip
+
+    out, nxt, lock, errors = [None] * len(queries), [0], threading.Lock(), []
+
+    def client():
+        conn = _connect(port)
+        try:
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= len(queries) or errors:
+                    return
+                body = json.dumps({"query": queries[i], "limit": LIMIT, "min_score": MIN_SCORE, "score_pct": PCT,
+                                   "timeout": 60_000}).encode()
+                status, resp = _roundtrip(conn, b"POST", b"/main/_search", body, b"application/json")
+                if status != 200:
+                    errors.append(f"query {i}: HTTP {status} {resp[:200]!r}")
+                    return
+                out[i] = resp
+        except Exception as exc:  # noqa: BLE001 -- raised below
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    ts = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"searches failed: {errors[:3]}")
+    return out, wall
+
+
+def check_bodies(label: str, batch, bodies, oracle=None) -> None:
+    """check_answers over the JSON _search bodies of one batch (targets, qs,
+    lens)."""
+    targets, qs, lens = batch
+    ids = np.zeros((len(bodies), LIMIT), np.int64)
+    scores, counts = np.zeros_like(ids), np.zeros(len(bodies), np.int64)
+    for b, raw in enumerate(bodies):
+        res = json.loads(raw)["results"]
+        counts[b] = len(res)
+        ids[b, : len(res)] = [r["id"] for r in res]
+        scores[b, : len(res)] = [r["score"] for r in res]
+    check_answers(label, targets, qs, lens, ids, scores, counts, oracle)
+
+
+def serve_fronts(served, batches, oracle=None, log=print) -> dict:
+    """Every batch (targets, qs, lens) through the Python server's _search and
+    then the native front's, THREADS clients each: self-retrieval (and, with
+    `oracle`, every answer equal to it) on the Python bodies, and every
+    native body byte-equal to the Python one.  Returns searches per second
+    on each front."""
+    server, front = served[0], served[3]
+    queries = [qs[b, : lens[b]].tolist() for _, qs, lens in batches for b in range(qs.shape[0])]
+    py, py_s = search_http(server.port, queries)
+    pos = 0
+    for k, batch in enumerate(batches):
+        n = batch[0].shape[0]
+        check_bodies(f"Python front, batch {k}", batch, py[pos : pos + n], oracle)
+        pos += n
+    native, native_s = search_http(front.port, queries)
+    same = sum(a == b for a, b in zip(py, native))
+    if same != len(queries):
+        raise AssertionError(f"native front: {same}/{len(queries)} bodies byte-equal to the Python server's")
+    fig = {"searches": len(queries), "threads": THREADS, "python_qps": len(queries) / py_s,
+           "native_qps": len(queries) / native_s, "oracle": oracle is not None}
+    log(f"bench_100m: {len(queries)} searches through _search at {fig['python_qps']:.0f}/s (Python server) and "
+        f"{fig['native_qps']:.0f}/s (native front, every body byte-equal); self-retrieval 1.0"
+        + (", every answer equal to the oracle" if oracle else ""))
+    return fig
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join("chiprun_out", "bench_100m.json"))
+    ap.add_argument("--out", default=None, help="default chiprun_out/bench_100m.json, or "
+                    "chiprun_out/bench_100m_server.json with --through-server")
+    ap.add_argument("--through-server", action="store_true",
+                    help="load the corpus through the CLI's server (_bulk, threshold checkpoint, restart) and "
+                         "serve it on both fronts, instead of building the tier on the card")
+    ap.add_argument("--dir", default=None, help="--through-server: parent of the data directory (default: TMPDIR)")
     args = ap.parse_args(argv)
 
     import torch
@@ -442,12 +876,37 @@ def main(argv=None) -> int:
     dev = device()
     if dev.type != "cuda":
         raise SystemExit(f"bench_100m needs a card; the port's device is {dev}")
-    snap, rep = build_timed(dev)
-    rep.update(run(dev, snap))
-    del snap
+    if args.through_server:
+        import logging
+
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+        import shutil
+        import tempfile
+
+        from . import main as cli
+        from .measure import smi
+
+        out = args.out or os.path.join("chiprun_out", "bench_100m_server.json")
+        data_dir = tempfile.mkdtemp(prefix="bench_100m_server_", dir=args.dir)
+        try:
+            served, rep = load_through_server(dev, data_dir)
+            try:
+                rng = np.random.default_rng(11)
+                batches = [make_queries(rng) for _ in range(2)] + [boundary_queries(rng)]
+                rep["serve"] = serve_fronts(served, batches)
+            finally:
+                cli.stop_server(*served)
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+        rep.update(nvidia_smi=smi("name,power.limit"), device=torch.cuda.get_device_name(dev))
+    else:
+        out = args.out or os.path.join("chiprun_out", "bench_100m.json")
+        snap, rep = build_timed(dev)
+        rep.update(run(dev, snap))
+        del snap
     torch.cuda.empty_cache()
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(rep, f, indent=1)
     print(json.dumps(rep), flush=True)
     return 0

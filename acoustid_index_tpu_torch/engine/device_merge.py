@@ -6,15 +6,21 @@ the host; at 240M postings a checkpoint spends most of its time there.  The
 device merge packs the run into pinned host buffers, copies each array to
 the card once, merges it with ops/build.merge_postings_live (device sorts
 and binary searches) and copies the result back through pinned buffers,
-with one host sync.  Merges of at least DEVICE_MERGE_MIN_POSTINGS postings
+with one host sync (and one per part of a sort split past
+ops/build.SORT_PART postings).  Merges of at least DEVICE_MERGE_MIN_POSTINGS postings
 take the device path; small merges stay on the host, where the transfers
 would cost more than the sort.
 
 Exactness: merge_postings_live drops docs superseded WITHIN the merged run
-(the merger's skip_docs rule); docs superseded by segments OUTSIDE the run
-(newer file segments, or the memory tier during a file merge) are dropped
-by a host post-filter against the whole collection, as in the reference.
-Together they give the host merge_segments result bit for bit
+(the merger's skip_docs rule).  Docs that segments OUTSIDE the run mention
+(newer file segments, or the memory tier during a file merge, or the rest
+of a bulk stream during a memory merge) are dropped on the card too: the
+newer segments' mentioned docs ride along as one more source with no
+postings, past the run's ordinals.  The reference drops them in a host
+post-filter, one binary search of the merged docs per newer segment, which
+took most of a merge (852-935 ms of 865-948 at 10^7 postings; up to ~25 s
+per merge of a bulk stream 200 segments ahead of its merges).  Together
+they give the host merge_segments result bit for bit
 (tests/test_torch_device_merge.py).
 
 What changed against the reference: no padding to bucketed capacities
@@ -95,10 +101,24 @@ def merge_segments_auto(sources: Sequence[Segment], collection, counts: Optional
     return merged
 
 
-def _pack_for_merge(sources: Sequence[Segment], device):
+def _newer_docs(collection, info):
+    """The mentioned-doc arrays of the collection's segments newer than the
+    run."""
+    last = info.last_commit_id()
+    return [s.docs_ids for s in collection.all_segments() if s.info.commit_id > last and s.num_docs]
+
+
+def _pack_for_merge(sources: Sequence[Segment], device, newer_docs=()):
     """The run as merge_postings_live's eight inputs on `device`: postings
     and mentioned docs packed contiguously in source order (no padding),
-    filled in pinned host buffers on a card and copied once each."""
+    then, with `newer_docs`, one more source holding those docs and no
+    postings; filled in pinned host buffers on a card and copied once
+    each."""
+    if newer_docs:
+        mentions = np.concatenate(newer_docs)
+        sources = list(sources) + [Segment(info=None, hashes=np.empty(0, np.uint32), docids=np.empty(0, np.uint32),
+                                           docs_ids=mentions, docs_alive=np.zeros(mentions.shape[0], bool),
+                                           min_doc_id=0, max_doc_id=0)]
     S = len(sources)
     total = sum(s.num_items for s in sources)
     dtotal = sum(s.num_docs for s in sources)
@@ -123,8 +143,9 @@ def _pack_for_merge(sources: Sequence[Segment], device):
 
 
 def merge_segments_device(sources: Sequence[Segment], collection, device=None) -> Segment:
-    """Bit-for-bit equivalent of memseg.merge_segments, with the O(n log n)
-    work on `device` (default: utils.device.device())."""
+    """Bit-for-bit equivalent of memseg.merge_segments over a `collection`
+    that lists its segments (a Snapshot), with the O(n log n) work on
+    `device` (default: utils.device.device())."""
     from ..ops.build import merge_postings_live
 
     if device is None:
@@ -142,12 +163,14 @@ def merge_segments_device(sources: Sequence[Segment], collection, device=None) -
 
     # Profiler spans (utils/profiling): the device work is asynchronous, so
     # "merge" holds its launches and "copy_back" the wait for it.
+    newer = _newer_docs(collection, info)
     with trace("device_merge.pack"):
-        packed = _pack_for_merge(sources, device)
+        packed = _pack_for_merge(sources, device, newer)
     with trace("device_merge.merge"):
-        h, d, n_kept, out_id, out_alive, n_docs = merge_postings_live(*packed)
+        h, d, n_kept, out_id, out_alive, n_docs = merge_postings_live(*packed, n_run=len(sources))
     with trace("device_merge.copy_back"):
-        # Back through pinned buffers behind one event: the only host sync.
+        # Back through pinned buffers behind one event: the only host sync
+        # below ops/build.SORT_PART postings (a split sort adds one per part).
         outs = (h, d, out_id, out_alive, torch.stack([n_kept, n_docs]))
         if device.type == "cuda":
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
@@ -164,12 +187,6 @@ def merge_segments_device(sources: Sequence[Segment], collection, device=None) -
         docs_ids = out_id[:n_docs].view(np.uint32).copy()
         docs_alive = out_alive[:n_docs].astype(bool)
 
-    # Outside-run supersession: a doc rewritten or deleted in a segment
-    # NEWER than the whole run must be dropped here too (the host merger
-    # consults the whole collection per source).
-    with trace("device_merge.post_filter"):
-        hashes, docids, docs_ids, docs_alive = _drop_newer(collection, info, hashes, docids, docs_ids, docs_alive)
-
     return Segment(
         info=info,
         hashes=hashes,
@@ -181,19 +198,3 @@ def merge_segments_device(sources: Sequence[Segment], collection, device=None) -
         metadata=tuple(metadata.items()),
     )
 
-
-def _drop_newer(collection, info, hashes, docids, docs_ids, docs_alive):
-    """The merged arrays without the docs that a segment newer than the
-    run mentions (and their postings)."""
-    if hasattr(collection, "has_newer_commit_batch") and docs_ids.shape[0]:
-        newer = collection.has_newer_commit_batch(docs_ids, info.last_commit_id())
-        if newer.any():
-            drop_ids = docs_ids[newer]
-            docs_ids = docs_ids[~newer]
-            docs_alive = docs_alive[~newer]
-            idx = np.searchsorted(drop_ids, docids)
-            idx_c = np.clip(idx, 0, drop_ids.shape[0] - 1)
-            keep = drop_ids[idx_c] != docids
-            hashes = hashes[keep]
-            docids = docids[keep]
-    return hashes, docids, docs_ids, docs_alive

@@ -30,7 +30,11 @@ device_merge.merge_segments_auto, as in the reference: big runs merge on
 the device, small ones on the host, and the index counts both routes and
 any fallback from device to host in `merge_counts` (the metrics count
 them too, the fold of a long WAL tail at open included).  A checkpoint's merge,
-file write and tier pack are profiler spans (utils/profiling.trace).
+file write and tier pack are profiler spans (utils/profiling.trace), as are
+an open's file reads, WAL replay and tier packs.  The
+maintenance thread packs a bulk stream's deferred memory tier only after
+IDLE_RESOLVE_S without a write; the reference packs it after every pass,
+that is after nearly every batch of the stream.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ log = logging.getLogger("acoustid_index_tpu_torch.index")
 class Index:
     DEFAULT_CHECKPOINT_THRESHOLD = 100_000
     DEFAULT_CHECKPOINT_AGE = 60.0  # seconds; None disables
+    IDLE_RESOLVE_S = 2.0  # seconds with no write before the maintenance thread packs a deferred memory tier
 
     def __init__(
         self,
@@ -155,7 +160,7 @@ class Index:
                     return filefmt.read_segment(data_dir, info)
 
             workers = load_concurrency or min(8, len(infos))
-            with ThreadPoolExecutor(max_workers=workers) as pool:
+            with trace("open.read"), ThreadPoolExecutor(max_workers=workers) as pool:
                 file_segments = list(pool.map(load, infos))
         else:
             file_segments = []
@@ -183,7 +188,8 @@ class Index:
                 build_segment(txn.changes, SegmentInfo(commit_id=txn.id, merges=0, version=txn.version))
             )
 
-        oplog = Oplog.open(oplog_dir, sync=sync, handler=apply)
+        with trace("open.replay"):
+            oplog = Oplog.open(oplog_dir, sync=sync, handler=apply)
 
         if len(memory_segments) > MEMORY_SLOTS - 8:
             # The replayed WAL tail can hold many transactions (one memory
@@ -202,6 +208,9 @@ class Index:
         oplog.last_version = version
 
         searcher = searcher or default_searcher()
+        with trace("open.pack"):
+            file_view = searcher.pack_file_tier(file_segments, owner=path)
+            mem_view = searcher.pack_mem_tier(memory_segments, owner=path)
         snapshot = Snapshot(
             file=tuple(file_segments),
             memory=tuple(memory_segments),
@@ -210,8 +219,8 @@ class Index:
             version=version,
             file_version=file_version,
             external_versions=state["external"],
-            file_view=searcher.pack_file_tier(file_segments, owner=path),
-            mem_view=searcher.pack_mem_tier(memory_segments, owner=path),
+            file_view=file_view,
+            mem_view=mem_view,
         )
         return cls(path, oplog, snapshot, checkpoint_threshold, checkpoint_age, searcher)
 
@@ -251,12 +260,20 @@ class Index:
             if self._stop.is_set():
                 return
             try:
-                self.run_maintenance()
+                self.run_maintenance(resolve_idle=False)
+                # Idle means no write for IDLE_RESOLVE_S: a bulk stream's
+                # next batch lands well within it (a write sets _wake), so
+                # the deferred tier is packed once when the stream stops,
+                # not after every batch (each pack re-sorts the whole tier:
+                # quadratic over a stream of 2^30 postings).
+                if not self._wake.wait(self.IDLE_RESOLVE_S) and not self._stop.is_set():
+                    self._resolve_idle()
             except Exception:
                 log.exception("maintenance failed")
 
-    def run_maintenance(self) -> None:
-        """Cascade pending work until nothing is left."""
+    def run_maintenance(self, resolve_idle: bool = True) -> None:
+        """Cascade pending work until nothing is left; with `resolve_idle`,
+        then resolve a deferred memory-tier view."""
         while not self._stop.is_set():
             if self.merge_memory():
                 continue
@@ -265,11 +282,14 @@ class Index:
             if self.merge_files():
                 continue
             break
+        if resolve_idle:
+            self._resolve_idle()
+
+    def _resolve_idle(self) -> None:
         # Cascade idle: if a bulk stream left the memory-tier view deferred,
         # resolve it NOW (fold + pack + background compile) so the stream's
         # first search doesn't pay all three inline and 503 on a cold shape.
-        # A still-running stream just re-defers on its next batch; the
-        # resolution cost is bounded by one pack per idle transition.
+        # The resolution cost is bounded by one pack per idle transition.
         if not self._stop.is_set():
             snap = self.acquire_reader()
             if snap.mem_view is PENDING_VIEW:

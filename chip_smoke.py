@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of acoustid_index_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py    # one card, ~11 minutes; exits 2 without CUDA
+    python3 chip_smoke.py    # one card, ~12 minutes; exits 2 without CUDA
 
 Phases, each fatal on failure:
   0. device: the card's name and power limit (nvidia-smi), CUDA present;
@@ -141,6 +141,27 @@ Phases, each fatal on failure:
      e2e_rw_segments > 1; its stubbed windows may launch no K1/K2 and run no
      program, and K1 and K2 must launch on its path (launches_by_path
      "bench").
+  5. the 134M corpus through the front door (bench_100m.load_through_server):
+     the CLI's server (main.build_server; --checkpoint-threshold one below
+     the 2^30 postings, --checkpoint-age-ms 0, --search-port -1) takes
+     PUT /main and the corpus as 299 msgpack POST /main/_bulk bodies of
+     450K docs in position order from 4 clients; its maintenance thread's
+     threshold checkpoint must write one file segment, every merge of the
+     load on the card (device >= 1, fallback 0; a host short of RAM for
+     the load fails it with the amount it needs); then the server is
+     stopped and started again on its directory, timed to its first
+     answered _search, and must serve the file tier interleaved on the card
+     with 2^31 entries.  With every launch counter at 0: two batches of 256
+     (6 of a target's 8 hashes + 4 random) and the boundary batch through
+     the Python server, every answer equal to tests/oracle.py over the
+     analytic corpus (bench_100m.OracleCorpus) with self-retrieval 1.0, and
+     through the native front, every body byte-equal; then phase 2's write
+     mix (1,000 new docs above 2^27, 5 rewrites, 5 deletes) read back and
+     searched against the oracle with the changes applied.  K1 and K2 must
+     launch (launches_by_path "front_door_134m"), the scans never, with at
+     most 2 host syncs per batch; the seconds of the load, the checkpoint
+     and the restart, their spans, peak host RSS and the card's peak are
+     logged; the card's memory must come back within 64 MiB.
 
 Each phase's seconds are logged.  The run fails if jax, any module of
 acoustid_index_tpu or of probes/ was imported.
@@ -1509,6 +1530,84 @@ def phase4_bench():
     return launches, detail
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def phase5_front_door(dev, native_built):
+    """The 134M corpus through the front door: bench_100m.load_through_server
+    bulk-loads it over HTTP _bulk into the CLI's server, whose maintenance
+    thread checkpoints it on the card as one file segment, then restarts the
+    server on its directory.  With the launch counters at 0: two batches of
+    256 and the boundary batch through both fronts (every answer equal to
+    the analytic oracle, every native body byte-equal to the Python one),
+    then the write mix over the served 2^30 postings.  K1 and K2 must have
+    launched, the scans never, with at most 2 host syncs per batch; the
+    card's memory comes back within 64 MiB.  Returns the figures."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from acoustid_index_tpu_torch import bench_100m
+    from acoustid_index_tpu_torch import main as cli
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.ops import search_kernel as sk
+    from oracle import oracle_search
+
+    t_phase = time.perf_counter()
+    native_built()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()  # earlier phases' pinned host blocks
+    base = torch.cuda.memory_allocated(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_door_")
+    served = None
+    try:
+        served, fig = bench_100m.load_through_server(dev, tmp, log=lambda msg: log(f"phase5: {msg}"))
+        check(fig["file_tier_entries"] == 2**31, f"phase5: the restarted file tier holds {fig['file_tier_entries']} entries")
+        corpus = bench_100m.OracleCorpus()
+
+        def oracle(q):
+            return oracle_search([corpus], q, limit=bench_100m.LIMIT, min_score=bench_100m.MIN_SCORE, pct=bench_100m.PCT)
+
+        rng = np.random.default_rng(13)
+        batches = [bench_100m.make_queries(rng) for _ in range(2)] + [bench_100m.boundary_queries(rng)]
+
+        # ---- the main path: counters from zero, reads on both fronts, then writes ----
+        for k in bl.LAUNCHES:
+            bl.LAUNCHES[k] = 0
+        stats0 = dict(sk.STATS)
+        fig["serve"] = bench_100m.serve_fronts(served, batches, oracle, lambda msg: log(f"phase5: {msg}"))
+        targets, qs, lens = batches[0]
+        queries = [qs[b, : lens[b]].tolist() for b in range(qs.shape[0])]
+        _, fig["writes"], _ = write_mix(f"http://127.0.0.1:{served[0].port}", bench_100m.N_DOCS, targets, queries, rng,
+                                        corpus, "phase5")
+        fig["launches"] = dict(bl.LAUNCHES)
+        fig["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
+        n_batches = sum(fig["branches"][k] for k in ("direct", "matrix", "sort"))
+        check_launches(fig["launches"], "phase5")
+        check(fig["branches"]["host_syncs"] <= 2 * n_batches,
+              f"phase5: {fig['branches']['host_syncs']} host syncs in {n_batches} batches")
+        log(f"phase5: launches on the front-door path {fig['launches']}; batches/branches/host syncs {fig['branches']}")
+    finally:
+        if served is not None:
+            cli.stop_server(*served)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del served
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) - base
+    check(left <= 64 * 2**20, f"phase5: {left / 2**20:.1f} MiB of the front-door phase still allocated after it")
+    fig["allocated_after_mib"] = left / 2**20
+    fig["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase5: the server stopped and its tiers freed ({left / 2**20:.1f} MiB above the level before the phase); "
+        f"done in {fig['phase_s']:.1f} s")
+    return fig
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1649,13 +1748,15 @@ def main() -> int:
             check(launches[scan] == 0, f"{scan} launched {launches[scan]} times on the {path} path")
     cli_stats = timed("phase3", phase3_cli)
     bench_launches, bench_detail = timed("phase4", phase4_bench)
+    front_door = timed("phase5", phase5_front_door, dev, native_built)
     check("jax" not in sys.modules, "jax was imported")
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("acoustid_index_tpu", "probes"))
     check(not ref_mods, f"modules of the JAX package or of probes/ were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
     detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase1d": scale, "phase2": serving, "phase2c": mesh,
-              "phase2d": replica, "phase2b": model, "phase3": cli_stats, "phase4": bench_detail, "phase_s": phase_s,
+              "phase2d": replica, "phase2b": model, "phase3": cli_stats, "phase4": bench_detail, "phase5": front_door,
+              "phase_s": phase_s,
               "total_s": total, "nvidia_smi": smi}
     print(f"detail: {json.dumps(detail, default=str)}", file=sys.stderr, flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -1668,7 +1769,8 @@ def main() -> int:
                 "mesh_serving": mesh["launches"][name],
                 "replica": replica["A"]["launches"][name] + replica["B"]["launches"][name],
                 "model_forward": model["launches"][name],
-                "probes": probe_launches[name], "scale_134m": scale_launches[name], "bench": bench_launches[name]}
+                "probes": probe_launches[name], "scale_134m": scale_launches[name], "bench": bench_launches[name],
+                "front_door_134m": front_door["launches"][name]}
 
     def of(kernel):
         return [r for r in kern if r["kernel"] == kernel]

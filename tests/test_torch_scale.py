@@ -32,6 +32,7 @@ on the card); they skip here.
 """
 
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -316,3 +317,141 @@ def test_cuda_134m_kernels_match_plain(tier134m):
         case["sets"] = case["sets"][:2]
         rec = measure.check_case(case)
         assert rec["max_abs_err"] == 0, rec["shape"]
+
+
+# ---- repairs at 2^30 postings, pinned by their size arithmetic ----
+#
+# The card merge of a checkpoint takes the whole 134M load, 2^30 postings,
+# as one run (ops/build.merge_postings_live).  It held ~15 int64 columns of
+# the run at once (~120 GiB at 2^30); it now makes one key column in chunks
+# of MERGE_CHUNK postings and sorts it in key-range parts of ~SORT_PART
+# keys.  Here both constants are scaled down with the run: the result must
+# stay the host merger's, bit for bit, and no sort or search may see more
+# than a chunk or ~a part at once.
+
+
+def _merge_run(seed, n_src=8, docs=512, width=8):
+    """n_src sources (commit ids 1..n_src) of `docs` docs x `width` hashes,
+    with re-inserts and deletes of earlier sources' docs, hash and doc id
+    0xFFFFFFFF among them: the run and its host merge."""
+    from acoustid_index_tpu_torch.engine.memseg import build_segment, merge_segments
+    from acoustid_index_tpu_torch.engine.model import Delete, Insert
+    from acoustid_index_tpu_torch.engine.segments import Snapshot
+
+    rng = np.random.default_rng(seed)
+    segs = []
+    for k in range(n_src):
+        ids = rng.choice(np.arange(1, 8 * docs), docs, replace=False)
+        changes = [Insert(id=int(i), hashes=rng.integers(0, 2**32, width, dtype=np.uint32).tolist()) for i in ids[:-8]]
+        changes += [Delete(id=int(i)) for i in ids[-8:]]
+        changes.append(Insert(id=0xFFFFFFFF, hashes=[0xFFFFFFFF, 0xFFFFFFFF, k]))
+        segs.append(build_segment(changes, SegmentInfo(commit_id=k + 1)))
+    return segs, merge_segments(segs, Snapshot(file=tuple(segs)))
+
+
+def _merged_on_device(segs):
+    from acoustid_index_tpu_torch.engine import device_merge
+    from acoustid_index_tpu_torch.engine.segments import Snapshot
+
+    return device_merge.merge_segments_device(segs, Snapshot(file=tuple(segs)), device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("chunk,part", [(1 << 20, 1 << 20), (1 << 12, 1 << 20), (1 << 20, 1 << 12), (1000, 3000)])
+def test_device_merge_in_chunks_and_parts_equals_host(chunk, part, monkeypatch):
+    from acoustid_index_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "MERGE_CHUNK", chunk)
+    monkeypatch.setattr(build, "SORT_PART", part)
+    monkeypatch.setattr(build, "_SAMPLES", 64)
+    segs, want = _merge_run(chunk % 7)
+    got = _merged_on_device(segs)
+    assert min(chunk, part) == 1 << 20 or want.num_items > 4 * min(chunk, part)  # several where cut down
+    for f in ("hashes", "docids", "docs_ids", "docs_alive"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert (got.info, got.min_doc_id, got.max_doc_id) == (want.info, want.min_doc_id, want.max_doc_id)
+
+
+def test_device_merge_sorts_and_searches_at_most_a_part(monkeypatch):
+    """Every sort and search of merge_postings_live sees at most a chunk or
+    about a part of the run (here 2^12 of its 2^15 postings): at 2^30
+    postings the defaults bound them to 2^26 and ~2^27 keys."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from acoustid_index_tpu_torch.ops import build
+
+    assert (1 << 30) // build.MERGE_CHUNK == 16 and (1 << 30) // build.SORT_PART == 8  # the defaults at 2^30
+    monkeypatch.setattr(build, "MERGE_CHUNK", 1 << 12)
+    monkeypatch.setattr(build, "SORT_PART", 1 << 12)
+    monkeypatch.setattr(build, "_SAMPLES", 1 << 8)
+    segs, want = _merge_run(3, docs=500)
+    seen = {}
+
+    class Sizes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("sort", "searchsorted"):
+                n = args[0].numel() if name == "sort" else args[1].numel()
+                seen[name] = max(seen.get(name, 0), n)
+            return func(*args, **(kwargs or {}))
+
+    with Sizes():
+        got = _merged_on_device(segs)
+    assert sum(s.num_items for s in segs) > 7 * (1 << 12) and want.num_items > 5 * (1 << 12)
+    assert np.array_equal(got.hashes, want.hashes) and np.array_equal(got.docids, want.docids)
+    assert seen["searchsorted"] <= 1 << 12 and seen["sort"] <= 2 * (1 << 12), seen
+
+
+# The maintenance thread repacked a bulk stream's whole deferred memory
+# tier after nearly every batch (each pack re-sorts the tier: quadratic
+# over 2^30 postings); it now packs it once, IDLE_RESOLVE_S after the last
+# write.
+
+
+def test_bulk_stream_packs_the_deferred_memory_tier_once(tmp_path, monkeypatch):
+    from acoustid_index_tpu_torch.engine.index import Index
+    from acoustid_index_tpu_torch.engine.searcher import Searcher
+
+    monkeypatch.setattr(Index, "IDLE_RESOLVE_S", 1.5)
+    searcher = Searcher(torch.device("cpu"))
+    packs = []
+    pack_mem = searcher.pack_mem_tier
+    monkeypatch.setattr(searcher, "pack_mem_tier", lambda segs, owner=None: (packs.append(len(segs)), pack_mem(segs, owner))[1])
+    idx = Index.open(str(tmp_path), checkpoint_threshold=10**9, checkpoint_age=None, searcher=searcher)
+    idx.start()
+    try:
+        for k in range(8):
+            ids = np.arange(1 + 1000 * k, 1001 + 1000 * k, dtype=np.uint32)
+            idx.bulk_insert(ids, port_bench.doc_hashes_np(ids))
+            time.sleep(0.1)  # a stream's gap between batches: the maintenance thread runs in it
+        assert packs == [0]  # only the empty tier of the open
+        for _ in range(100):
+            if isinstance(idx.acquire_reader().mem_view, dict):
+                break
+            time.sleep(0.05)
+        assert packs == [0, 8] and isinstance(idx.acquire_reader().mem_view, dict)
+    finally:
+        idx.close()
+
+
+# The device merge dropped the docs that segments newer than the run
+# mention in a host post-filter, one binary search of the merged docs per
+# newer segment (up to ~25 s per merge when a bulk stream ran 200 segments
+# ahead of its merges); their mentions now ride along to the card as one
+# more source with no postings.
+
+
+def test_device_merge_drops_newer_mentions_on_the_card(monkeypatch):
+    from acoustid_index_tpu_torch.engine import device_merge
+    from acoustid_index_tpu_torch.engine.memseg import merge_segments
+    from acoustid_index_tpu_torch.engine.segments import Snapshot
+
+    segs, _ = _merge_run(5)
+    collection = Snapshot(file=tuple(segs[:3]), memory=tuple(segs[3:]))
+    for run in (segs[:4], segs[2:5], segs[:2]):
+        want = merge_segments(run, collection)
+        assert want.num_items < sum(s.num_items for s in run)  # newer segments drop some of the run
+        with monkeypatch.context() as m:
+            m.setattr(Snapshot, "has_newer_commit_batch", lambda *a: pytest.fail("a host post-filter ran"))
+            got = device_merge.merge_segments_device(run, collection, device=torch.device("cpu"))
+        for f in ("hashes", "docids", "docs_ids", "docs_alive"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
