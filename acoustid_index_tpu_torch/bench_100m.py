@@ -1,7 +1,7 @@
 """The 134M-fingerprint scale point on one card (counterpart of the root
 bench_100m.py).
 
-    python -m acoustid_index_tpu_torch.bench_100m [--out FILE]
+    python -m acoustid_index_tpu_torch.bench_100m [--mesh-shards 4] [--out FILE]
 
 The corpus is the reference bench's, computed from its definition: 2^27
 docs of 8 hashes, one per band of 2^29 hash values, so 2^30 postings and an
@@ -36,7 +36,14 @@ every 2^21 positions.
     second), kernel launches, branches and host syncs per batch, the card's
     busy share under torch.profiler over PROFILED batches, and last
     SUBMIT_QUERIES queries through BatchingSearcher.submit from THREADS
-    threads, each checked as above.
+    threads, each checked as above; digests of the checked and of the
+    timed batches' packed outputs;
+  * shard_tier cuts the same tier into MESH_SHARDS hash-range shards of two
+    whole bands each, as views on one slot or as copies on each slot's
+    card, and run_sharded drives run()'s batches, from the same seed,
+    through ShardedBatchingSearcher: every answer checked as above, its
+    output digests equal to run()'s, K1/K2 launches, host syncs and
+    branches per batch (parallel.sharded.STATS), each card's peak.
 
 The module's command writes chiprun_out/bench_100m.json and prints it as
 its last line.  It checks self-retrieval only: the oracle lives in the
@@ -67,6 +74,7 @@ BOUNDARY_NOISE = (0xFFFFFFFC, 0xFFFFFFFD, 0xFFFFFFFE, 0xFFFFFFFF)
 CHUNK = 1 << 24  # inter entries per build step (int64 intermediates of 128 MiB)
 ROUNDS, PIPELINED, IN_FLIGHT, PROFILED = 100, 100, 4, 5
 SUBMIT_QUERIES, THREADS = 512, 32
+MESH_SHARDS = 4  # the sharded run: hash_bounds(4) gives each shard two whole bands, 2^28 postings
 # Through the server: docs per _bulk body (16,200,018 bytes of msgpack, under
 # server/http.py's 16 MiB body cap), bulk clients (well under its listen
 # backlog of 128), and the host RAM the load needs per posting.
@@ -354,10 +362,71 @@ def build_timed(dev, log=print):
     return snap, fig
 
 
+def shard_tier(snap, mesh):
+    """build_tier's tier `snap` as the sharded program's view over `mesh`,
+    with no repacking.  hash_bounds(n) with n dividing the 8 bands gives
+    shard k the bands [8k/n, 8(k+1)/n): the contiguous postings
+    [kP, (k+1)P) of the band-major tier, P = 8 * width / n a whole number of
+    blocks.  So shard k is inter[2kP : 2(k+1)P], block_index[kP/1024 :
+    (k+1)P/1024], seg_start 0 and seg_len P, as _pack_tier_sharded packs
+    the same postings with one segment slot; the memory tier is
+    _pack_tier_sharded([], n, MEMORY_SLOTS).  With one slot the fields are
+    views of the tier's own tensors; with S slots each slot's run of shards
+    is copied to the slot's device (2 GiB per shard at 134M over 4).
+    Returns a Snapshot that ShardedBatchingSearcher(mesh) serves."""
+    import torch
+
+    from .engine.segments import _VIEW_TOKENS, MEMORY_SLOTS, Snapshot
+    from .ops.layout import BLOCK
+    from .parallel.sharded import _pack_tier_sharded, put_sharded
+
+    n = mesh.n_shards
+    inter, block_index = snap.file_view["inter"], snap.file_view["block_index"]
+    per = inter.shape[0] // 2 // n  # postings per shard: every posting of the tier is live
+    if HASHES_PER_DOC % n or per % BLOCK:
+        raise ValueError(f"{n} shards do not cut the tier's {HASHES_PER_DOC} bands into whole bands and blocks")
+    slots = []
+    for s, dev in enumerate(mesh.slots):
+        a, b = mesh.shard_range(s)
+
+        def take(t, x):  # shards [a, b) of a flat field of x entries per shard
+            part = t[a * x : b * x]
+            return part if len(mesh.slots) == 1 else part.to(dev, copy=True)
+
+        slots.append({
+            "inter": take(inter, 2 * per),
+            "block_index": take(block_index, per // BLOCK),
+            "seg_start": torch.zeros(b - a, dtype=torch.int32, device=dev),
+            "seg_len": torch.full((b - a,), per, dtype=torch.int32, device=dev),
+        })
+    for dev in set(mesh.slots):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # the copies ran on this thread's streams; searches run on others
+    mem_view = put_sharded(_pack_tier_sharded([], n, MEMORY_SLOTS), mesh)
+    mem_view["view_token"] = next(_VIEW_TOKENS)
+    return Snapshot(file_view={"slots": tuple(slots), "view_token": next(_VIEW_TOKENS)}, mem_view=mem_view)
+
+
 def run(dev, snap, oracle=None, log=print) -> dict:
     """The search program over the 134M tier `snap` (build_tier), checked
-    and timed as the module docstring says; returns the figures.  Raises
-    on any check that fails."""
+    and timed as the module docstring says; returns the figures, with a
+    digest of the packed outputs of the checked and of the timed batches.
+    Raises on any check that fails."""
+    return _drive(dev, snap, oracle, log)
+
+
+def run_sharded(snap, mesh, oracle=None, log=print) -> dict:
+    """run() through ShardedBatchingSearcher(mesh) over shard_tier(tier,
+    mesh) `snap`: the same checked batches, timed rounds, profile and
+    submit queries, from the same seed, so its output digests must equal
+    run()'s; the branches are parallel.sharded.STATS's, and each card's
+    peak allocation is recorded."""
+    return _drive(mesh.device, snap, oracle, log, mesh)
+
+
+def _drive(dev, snap, oracle=None, log=print, mesh=None) -> dict:
+    import hashlib
+
     import torch
 
     from .engine.model import SearchOptions
@@ -369,16 +438,38 @@ def run(dev, snap, oracle=None, log=print) -> dict:
     p = params()
     rep = {"nvidia_smi": smi("name,power.limit"), "device": torch.cuda.get_device_name(dev), "docs": N_DOCS,
            "postings": N_DOCS * HASHES_PER_DOC, "batch": BATCH, "params": vars(p)}
-    searcher = Searcher(dev)
-    rng = np.random.default_rng(11)
+    if mesh is None:
+        searcher, branch_stats, branch_keys = Searcher(dev), sk.STATS, ("direct", "matrix", "sort")
+        cards = [dev]
+    else:
+        from .parallel import sharded as sh
+        from .parallel.serving import ShardedBatchingSearcher
 
-    def search(packed):
+        searcher, branch_stats, branch_keys = ShardedBatchingSearcher(mesh), sh.STATS, tuple(sh.STATS)
+        cards = sorted(set(mesh.slots), key=str)
+        rep.update(shards=mesh.n_shards, slots=[str(d) for d in mesh.slots], mesh=sh.describe_mesh(mesh))
+    base = {}
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[str(d)] = torch.cuda.memory_allocated(d)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    rng = np.random.default_rng(11)
+    digests = {"checked": hashlib.sha256(), "timed": hashlib.sha256()}
+
+    def search(packed, digest=None):
         out = searcher._fetch(searcher._launch(snap, p, packed))
+        if digest:
+            digests[digest].update(out.tobytes())
         return sk.unpack_outputs_np(out, p.out_len)
 
     def checked(label, batch):
         targets, qs, lens = batch
-        out = search(pack(qs, lens))
+        out = search(pack(qs, lens), "checked")
         check_answers(label, targets, qs, lens, out["ids"], out["scores"], out["count"], oracle)
 
     t0 = time.perf_counter()
@@ -391,18 +482,18 @@ def run(dev, snap, oracle=None, log=print) -> dict:
         + (", every answer equal to the oracle" if oracle else "") + f" (first batch {rep['first_batch_s']:.2f} s)")
 
     packs = [pack(*make_queries(rng)[1:]) for _ in range(ROUNDS)]
-    stats0, launches0 = dict(sk.STATS), dict(bl.LAUNCHES)
-    wall, marks = [], []
+    stats0, branches0, launches0 = dict(sk.STATS), dict(branch_stats), dict(bl.LAUNCHES)
+    wall, marks, outs = [], [], []
     for packed in packs:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record(searcher._stream)
         handle = searcher._launch(snap, p, packed)
         end.record(searcher._stream)
-        searcher._fetch(handle)
+        outs.append(searcher._fetch(handle))
         wall.append((time.perf_counter() - t0) * 1e3)
         marks.append((start, end))
-    torch.cuda.synchronize(dev)
+    sync()
     card = [a.elapsed_time(b) for a, b in marks]
     rep["timed"] = {
         "batches": ROUNDS,
@@ -410,8 +501,11 @@ def run(dev, snap, oracle=None, log=print) -> dict:
         "card_span_ms_p50": float(np.percentile(card, 50)), "card_span_ms_p99": float(np.percentile(card, 99)),
         "launches_per_batch": {k: (bl.LAUNCHES[k] - launches0[k]) / ROUNDS for k in ("block_count", "block_count_emit")},
         "host_syncs_per_batch": (sk.STATS["host_syncs"] - stats0["host_syncs"]) / ROUNDS,
-        "branches": {k: sk.STATS[k] - stats0[k] for k in ("direct", "matrix", "sort")},
+        "branches": {k: branch_stats[k] - branches0[k] for k in branch_keys},
     }
+    for out in outs:
+        digests["timed"].update(out.tobytes())
+    del outs
 
     pending, t0 = [], time.perf_counter()
     for packed in packs[:PIPELINED]:
@@ -423,12 +517,12 @@ def run(dev, snap, oracle=None, log=print) -> dict:
     rep["timed"]["searches_per_s"] = PIPELINED * BATCH / (time.perf_counter() - t0)
     log(f"bench_100m: {json.dumps(rep['timed'])}")
 
-    torch.cuda.synchronize(dev)
+    sync()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for packed in packs[:PROFILED]:
             search(packed)
-        torch.cuda.synchronize(dev)
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
     dev_ms = _device_ms(ev)
@@ -439,7 +533,7 @@ def run(dev, snap, oracle=None, log=print) -> dict:
     log(f"bench_100m: profile {json.dumps(rep['profile'])}")
 
     # The serving layer: BatchingSearcher.submit from THREADS threads.
-    batching = BatchingSearcher(device=dev)
+    batching = BatchingSearcher(device=dev) if mesh is None else searcher
     opts = SearchOptions(max_results=LIMIT, min_score=MIN_SCORE, min_score_pct=PCT)
     targets, qs, lens = make_queries(rng, SUBMIT_QUERIES)
     ids = np.zeros((SUBMIT_QUERIES, LIMIT), np.int64)
@@ -481,6 +575,9 @@ def run(dev, snap, oracle=None, log=print) -> dict:
                      "latency_ms_p50": float(np.percentile(lat, 50)) * 1e3, "latency_ms_p99": float(np.percentile(lat, 99)) * 1e3}
     rep["checked"]["submit"] = SUBMIT_QUERIES
     log(f"bench_100m: BatchingSearcher.submit: {json.dumps(rep['submit'])}; every answer checked")
+    rep["digests"] = {k: v.hexdigest() for k, v in digests.items()}
+    rep["peak_allocated_gib"] = {str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in cards}
+    rep["peak_above_start_gib"] = {str(d): (torch.cuda.max_memory_allocated(d) - base[str(d)]) / 2**30 for d in cards}
     return rep
 
 
@@ -867,6 +964,9 @@ def main(argv=None) -> int:
                     help="load the corpus through the CLI's server (_bulk, threshold checkpoint, restart) and "
                          "serve it on both fronts, instead of building the tier on the card")
     ap.add_argument("--dir", default=None, help="--through-server: parent of the data directory (default: TMPDIR)")
+    ap.add_argument("--mesh-shards", type=int, default=0,
+                    help="then run the tier over N hash-range shards on the visible cards (shard_tier, run_sharded), "
+                         "its outputs held to the single run's (N divides 8)")
     args = ap.parse_args(argv)
 
     import torch
@@ -903,6 +1003,18 @@ def main(argv=None) -> int:
         out = args.out or os.path.join("chiprun_out", "bench_100m.json")
         snap, rep = build_timed(dev)
         rep.update(run(dev, snap))
+        if args.mesh_shards:
+            from .parallel.sharded import describe_mesh, make_mesh
+
+            mesh = make_mesh(args.mesh_shards)
+            print(f"bench_100m: {describe_mesh(mesh)}", flush=True)
+            t0 = time.perf_counter()
+            sharded = shard_tier(snap, mesh)
+            rep["mesh"] = {"shard_tier_s": time.perf_counter() - t0, **run_sharded(sharded, mesh)}
+            del sharded
+            if rep["mesh"]["digests"] != rep["digests"]:
+                raise SystemExit(f"the sharded outputs differ from the single program's: {rep['mesh']['digests']} "
+                                 f"against {rep['digests']}")
         del snap
     torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

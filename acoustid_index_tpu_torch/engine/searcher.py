@@ -212,8 +212,7 @@ class Searcher:
         """Run the batched program; returns a handle for _fetch.  On a card
         the work is queued on the searcher's stream and the packed output
         copied into pinned host memory behind an event."""
-        file_view = tier_view_for_search(snapshot.file_view, mentions=False)
-        mem_view = tier_view_for_search(snapshot.mem_view)
+        file_view, mem_view = self._search_views(snapshot)
         inp = torch.from_numpy(np.ascontiguousarray(packed_in).view(np.int32))
         if self._stream is None:
             out = self._program(params, file_view, mem_view, inp.to(self.device))
@@ -225,6 +224,12 @@ class Searcher:
             done = torch.cuda.Event()
             done.record(self._stream)
         return host, done
+
+    @staticmethod
+    def _search_views(snapshot):
+        """The (file, mem) tier fields the batch program reads (parallel/
+        serving.py's come per slot)."""
+        return tier_view_for_search(snapshot.file_view, mentions=False), tier_view_for_search(snapshot.mem_view)
 
     @staticmethod
     def _program(params: SearchParams, file_view, mem_view, inp):

@@ -9,9 +9,11 @@ AITPU_TORCH_DEVICE says otherwise).  Returns (forward, example_args);
 dryrun_multichip(n) -- the sharded path at n shards (parallel/): a sharded
 ingest step, one sharded search, and an Index served by a
 ShardedBatchingSearcher through write, checkpoint, write + delete and
-search.  All n shards are slices of the port's device (the card unless
-the caller passes `device` or AITPU_TORCH_DEVICE says otherwise); the
-reference's version forces n virtual CPU devices instead.
+search.  The n shards spread over the visible cards, up to one per shard
+(all on the one card of a one-card host), unless the caller passes
+`device` (make_mesh's devices) or AITPU_TORCH_DEVICE names one; it prints
+the shard -> card map.  The reference's version forces n virtual CPU
+devices instead.
 """
 
 from __future__ import annotations
@@ -65,9 +67,17 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     from .engine.segments import Snapshot
     from .ops.search_kernel import SearchParams
     from .parallel.serving import ShardedBatchingSearcher
-    from .parallel.sharded import build_sharded_view, hash_bounds, make_mesh, sharded_ingest_step, sharded_search
+    from .parallel.sharded import (
+        build_sharded_view,
+        describe_mesh,
+        hash_bounds,
+        make_mesh,
+        sharded_ingest_step,
+        sharded_search,
+    )
 
     mesh = make_mesh(n_devices, device)
+    print(f"dryrun_multichip({n_devices}): {describe_mesh(mesh)}")
     rng = np.random.default_rng(1)
 
     # Ingest step: hash-partition a write batch, sort per shard on the device.
@@ -116,4 +126,5 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
             idx.close()
             searcher.close()
 
-    print(f"dryrun_multichip({n_devices}): ingest + sharded search + sharded serving OK on {mesh.device}, top={ids[:3]}")
+    cards = ", ".join(str(d) for d in dict.fromkeys(mesh.slots))
+    print(f"dryrun_multichip({n_devices}): ingest + sharded search + sharded serving OK on {cards}, top={ids[:3]}")

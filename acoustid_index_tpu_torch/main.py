@@ -6,8 +6,8 @@ README "Configuration"); unknown flags warn and continue.
 The port's copy of acoustid_index_tpu/main.py; its imports are the port's
 own modules.  It differs in build_server()/stop_server(), split out of
 run_server() so that an in-process caller (chip_smoke.py) serves through
-the same entry as the CLI; in --mesh-shards N, whose N shards are slices
-of the one device (parallel/); and in --profile-port, a capture listener
+the same entry as the CLI; in --mesh-shards N, whose N shards spread over
+the visible cards, up to one card per shard (parallel/); and in --profile-port, a capture listener
 (utils/profiling.start_profiler_server) in place of jax.profiler's server:
 `GET /capture?ms=N` answers with a Chrome trace of the live process
 (-1 binds port 0 and prints `PROFILER <port>`).
@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh-shards",
         type=int,
         default=0,
-        help="Serve search hash-range-sharded over N shards of the device (0 = single device)",
+        help="Serve search hash-range-sharded over N shards on the visible cards, up to one card per shard "
+        "(0 = single device)",
     )
     return p
 
@@ -81,9 +82,10 @@ def build_server(args):
     searcher = None
     if args.mesh_shards:
         from .parallel.serving import ShardedBatchingSearcher
+        from .parallel.sharded import describe_mesh, make_mesh
 
-        searcher = ShardedBatchingSearcher(n_shards=args.mesh_shards)
-        logging.info("search sharded over %d shards of %s", searcher.n_shards, searcher.device)
+        searcher = ShardedBatchingSearcher(make_mesh(args.mesh_shards))
+        logging.info("search sharded: %s", describe_mesh(searcher.mesh))
 
     mi = MultiIndex.open(
         args.dir,

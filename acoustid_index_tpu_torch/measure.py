@@ -46,7 +46,7 @@ sort path at P = 1024, 2048, 4096), then at the 134M tier
 
     python -m acoustid_index_tpu_torch.measure --mesh 1,2,4,8 [--out FILE]
 
-times the sharded program (parallel/: N shards as slices of the card) in
+times the sharded program (parallel/: N shards over the visible cards) in
 place of the above: the same corpus packed once for the single program and
 once per shard count (ShardedBatchingSearcher's packing), every B=256
 batch's results first checked equal to the single program's; then, in
@@ -1232,7 +1232,6 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
     import torch
 
     from .engine.searcher import Searcher, _params_for
-    from .engine.segments import tier_view_for_search
     from .ops import block_lookup as bl
     from .ops import search_kernel as sk
     from .parallel import sharded as sh
@@ -1296,8 +1295,7 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
 
     for name in names:
         searcher, v = configs[name], views[name]
-        f_t = tier_view_for_search(v.file_view, mentions=False)
-        m_t = tier_view_for_search(v.mem_view)
+        f_t, m_t = searcher._search_views(v)
         n = getattr(searcher, "n_shards", None)
         ins = [torch.from_numpy(p.view(np.int32)).to(dev) for p in packs]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1307,9 +1305,10 @@ def mesh_report(dev, shards=MESH_SHARDS, log=print) -> dict:
             for x in ins:
                 qs, lens = sk.u32(x[:, :128]), x[:, 128].to(torch.int64)
                 for k in range(n or 1):
-                    ft = sh._local_tier(f_t, k, n) if n else f_t
-                    mt = sh._local_tier(m_t, k, n) if n else m_t
-                    sk._batch_ranges(params, ft, mt, qs, lens, want_emit=True)
+                    ft = sh._local_tier(f_t, k, searcher.mesh) if n else f_t
+                    mt = sh._local_tier(m_t, k, searcher.mesh) if n else m_t
+                    d = ft["seg_len"].device  # the shard's card
+                    sk._batch_ranges(params, ft, mt, qs.to(d), lens.to(d), want_emit=True)
             end.record()
         end.synchronize()
         rec[name]["range_phase_ms_events"] = start.elapsed_time(end) / MESH_BATCHES

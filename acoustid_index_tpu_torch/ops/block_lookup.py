@@ -115,6 +115,14 @@ def _launched(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+def _on_card(t):
+    """The launch context of a kernel on t's card: that card current for
+    the launch (the runtime launches on the calling thread's current
+    device, and a pump or dispatcher thread may have another one current),
+    so the stream passed is the caller's current stream of t's card."""
+    return torch.cuda.device(t.device)
+
+
 def block_count_plain(table, blk, q, stride: int = 1):
     """Plain PyTorch version of K1: (lt, eq) int32 per lookup."""
     nblk = table.shape[0] // (stride * BLOCK)
@@ -141,11 +149,11 @@ def _launch_count(name, table, blk, q, stride):
     L = blk.shape[0]
     lt = torch.empty(L, dtype=torch.int32, device=table.device)
     eq = torch.empty(L, dtype=torch.int32, device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = getattr(_build.library(), "aitpu_" + name)(
-        table.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
-        L, table.shape[0] // (stride * BLOCK), stride, stream,
-    )
+    with _on_card(table):
+        rc = getattr(_build.library(), "aitpu_" + name)(
+            table.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
+            L, table.shape[0] // (stride * BLOCK), stride, torch.cuda.current_stream(table.device).cuda_stream,
+        )
     _launched(rc, name)
     return lt, eq
 
@@ -217,11 +225,11 @@ def block_count_masked(table, blk, q, lo_b, hi_b):
     L = blk.shape[0]
     lt = torch.empty(L, dtype=torch.int32, device=table.device)
     eq = torch.empty(L, dtype=torch.int32, device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = _build.library().aitpu_block_count_masked(
-        table.data_ptr(), blk.data_ptr(), q.data_ptr(), lo_b.data_ptr(), hi_b.data_ptr(),
-        lt.data_ptr(), eq.data_ptr(), L, table.shape[0] // BLOCK, stream,
-    )
+    with _on_card(table):
+        rc = _build.library().aitpu_block_count_masked(
+            table.data_ptr(), blk.data_ptr(), q.data_ptr(), lo_b.data_ptr(), hi_b.data_ptr(),
+            lt.data_ptr(), eq.data_ptr(), L, table.shape[0] // BLOCK, torch.cuda.current_stream(table.device).cuda_stream,
+        )
     _launched(rc, "block_count_masked")
     return lt, eq
 
@@ -260,11 +268,11 @@ def _launch_emit(name, inter, blk, q):
     lt = torch.empty(L, dtype=torch.int32, device=inter.device)
     eq = torch.empty(L, dtype=torch.int32, device=inter.device)
     rows = torch.empty((L, 2, 128), dtype=torch.int32, device=inter.device)
-    stream = torch.cuda.current_stream(inter.device).cuda_stream
-    rc = getattr(_build.library(), "aitpu_" + name)(
-        inter.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
-        rows.data_ptr(), L, inter.shape[0] // (2 * BLOCK), stream,
-    )
+    with _on_card(inter):
+        rc = getattr(_build.library(), "aitpu_" + name)(
+            inter.data_ptr(), blk.data_ptr(), q.data_ptr(), lt.data_ptr(), eq.data_ptr(),
+            rows.data_ptr(), L, inter.shape[0] // (2 * BLOCK), torch.cuda.current_stream(inter.device).cuda_stream,
+        )
     _launched(rc, name)
     return lt, eq, rows
 

@@ -47,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from . import block_lookup as bl
-from .block_lookup import _PLAIN_CHUNK, BLOCK, ROWS, _check, _cuda_args, _launched
+from .block_lookup import _PLAIN_CHUNK, BLOCK, ROWS, _check, _cuda_args, _launched, _on_card
 from .layout import u32
 
 PAIR_VARIANTS = ("full", "oneblock", "noreduce", "empty")  # K3: _probe_floor.py's bisection
@@ -125,10 +125,11 @@ def block_count_pair(table, blk0, blk1, q, stride: int = 1, variant: str = "full
     blk1 = blk1.to(torch.int32).contiguous()
     L = blk0.shape[0]
     comp = torch.empty(L, dtype=torch.int32, device=table.device)
-    rc = _lib().aitpu_block_count_pair(
-        table.data_ptr(), blk0.data_ptr(), blk1.data_ptr(), q.data_ptr(), comp.data_ptr(),
-        L, table.shape[0] // (stride * BLOCK), stride, PAIR_VARIANTS.index(variant), g, _stream(table),
-    )
+    with _on_card(table):
+        rc = _lib().aitpu_block_count_pair(
+            table.data_ptr(), blk0.data_ptr(), blk1.data_ptr(), q.data_ptr(), comp.data_ptr(),
+            L, table.shape[0] // (stride * BLOCK), stride, PAIR_VARIANTS.index(variant), g, _stream(table),
+        )
     _launched(rc, "block_count_pair")
     return comp
 
@@ -187,10 +188,11 @@ def block_count_emit_docids(inter, blk, q, E: int, R: int = 1024, mode: str = "o
     L = blk.shape[0]
     comp = torch.empty(L, dtype=torch.int32, device=inter.device)
     d = torch.empty((E, L), dtype=torch.int32, device=inter.device)
-    rc = _lib().aitpu_block_count_emit_docids(
-        inter.data_ptr(), blk.data_ptr(), q.data_ptr(), comp.data_ptr(), d.data_ptr(),
-        L, inter.shape[0] // (2 * BLOCK), E, R, EMIT_MODES.index(mode), _stream(inter),
-    )
+    with _on_card(inter):
+        rc = _lib().aitpu_block_count_emit_docids(
+            inter.data_ptr(), blk.data_ptr(), q.data_ptr(), comp.data_ptr(), d.data_ptr(),
+            L, inter.shape[0] // (2 * BLOCK), E, R, EMIT_MODES.index(mode), _stream(inter),
+        )
     _launched(rc, "block_count_emit_docids")
     return comp, d
 
@@ -237,10 +239,11 @@ def block_count_staged(table, blk, q, G: int = 8, NBUF: int = 4):
     blk, q = _cuda_args(table, blk, q)
     L = blk.shape[0]
     comp = torch.empty(L, dtype=torch.int32, device=table.device)
-    rc = _lib().aitpu_block_count_staged(
-        table.data_ptr(), blk.data_ptr(), q.data_ptr(), comp.data_ptr(),
-        L, table.shape[0] // BLOCK, G, NBUF, _stream(table),
-    )
+    with _on_card(table):
+        rc = _lib().aitpu_block_count_staged(
+            table.data_ptr(), blk.data_ptr(), q.data_ptr(), comp.data_ptr(),
+            L, table.shape[0] // BLOCK, G, NBUF, _stream(table),
+        )
     _launched(rc, "block_count_staged")
     return comp
 

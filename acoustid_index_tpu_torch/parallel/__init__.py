@@ -1,5 +1,5 @@
-"""Hash-range sharded search and ingest over a mesh of shards on one device,
-with exact cross-shard score combination (counterpart of
+"""Hash-range sharded search and ingest over a mesh of shards on the
+process's cards, with exact cross-shard score combination (counterpart of
 acoustid_index_tpu/parallel/)."""
 
 from .sharded import (

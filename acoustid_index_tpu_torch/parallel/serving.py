@@ -1,6 +1,6 @@
 """Mesh-sharded serving (counterpart of acoustid_index_tpu/parallel/serving.py):
 a drop-in BatchingSearcher that packs segment views by hash range over a
-mesh (parallel/sharded.py: N shards as slices of one device) and runs the
+mesh (parallel/sharded.py: N shards over the slots' cards) and runs the
 batched sharded program.
 
 The engine stays oblivious: Index packs views through its searcher, so
@@ -8,21 +8,26 @@ The engine stays oblivious: Index packs views through its searcher, so
   * the FILE tier's sharded view is rebuilt only at checkpoint and merge,
     and shared by reference across write snapshots;
   * the MEMORY tier repacks per write batch, partitioned by hash range on
-    the host and placed on the mesh's device;
+    the host and placed on the slots' cards;
   * search coalesces concurrent requests exactly as BatchingSearcher does,
-    and `_launch` queues ONE sharded program per batch on the searcher's
-    own CUDA stream, with the pinned copy-back behind an event
-    (Searcher._launch with the program swapped), so the native front and
-    the legacy protocol pump through it unchanged.
+    and `_launch` queues ONE sharded program per batch: its inputs go up on
+    slot 0's stream (the searcher's own), each slot's stages run on the
+    slot's own stream (one per slot, so slots that share a card overlap
+    too), slot 0's stream joins them, and the pinned copy-back waits behind
+    an event there (Searcher._launch with the program and its tier fields
+    swapped), so the native front and the legacy protocol pump through it
+    unchanged.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
+import torch
+
 from ..engine.searcher import BatchingSearcher
 from ..engine.segments import _VIEW_TOKENS, FILE_SLOTS, MEMORY_SLOTS, slot_bucket
-from .sharded import _pack_tier_sharded, make_mesh, put_sharded, sharded_search_batch_packed_io
+from .sharded import _pack_tier_sharded, make_mesh, put_sharded, sharded_search_batch_packed_io, slot_tiers
 
 
 class ShardedBatchingSearcher(BatchingSearcher):
@@ -34,6 +39,9 @@ class ShardedBatchingSearcher(BatchingSearcher):
         super().__init__(max_wait=max_wait, device=mesh.device)
         self.mesh = mesh
         self.n_shards = mesh.n_shards
+        self._streams = None
+        if self._stream is not None:
+            self._streams = (self._stream, *(torch.cuda.Stream(d) for d in mesh.slots[1:]))
 
     # ---- view packing (called by the engine on tier changes) ----
 
@@ -75,5 +83,9 @@ class ShardedBatchingSearcher(BatchingSearcher):
 
     # ---- batch execution ----
 
+    @staticmethod
+    def _search_views(snapshot):
+        return slot_tiers(snapshot.file_view, mentions=False), slot_tiers(snapshot.mem_view)
+
     def _program(self, params, file_view, mem_view, inp):
-        return sharded_search_batch_packed_io(params, self.mesh, file_view, mem_view, inp)
+        return sharded_search_batch_packed_io(params, self.mesh, file_view, mem_view, inp, self._streams)

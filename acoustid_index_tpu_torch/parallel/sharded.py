@@ -14,26 +14,38 @@ The reference's layout and semantics, unchanged:
     combine with a max, the statistics with a sum or a max.
 
 What changed in the port, and why:
-  * the mesh is N shards as slices of ONE device (`Mesh`).  NCCL does not
-    put two ranks on one card, and the reference tests its own mesh as
-    virtual devices of one process.  The packed device fields ship flat,
-    (n_shards * X,) as in the reference, and shard k's local tier is a
-    VIEW of them (`_local_tier`): no copy per batch;
-  * the collectives are plain tensor operations over the shards' tensors,
-    in shard order 0..n-1: all_gather(axis=1, tiled) is `torch.cat(.., 1)`,
-    pmax a max and psum a sum.  Scoring the joined stream once replaces
-    scoring it identically on every shard;
-  * `lax.cond` on pmax'd predicates is a host-side branch: each stage's
-    predicates of ALL shards come to the host in one transfer (`_host`),
-    so a batch makes at most two host syncs at any shard count, as the
-    single path does (ops/search_kernel.py);
+  * the mesh is one controller over the process's cards, as the reference
+    runs one SPMD program over its local devices: a `Mesh` of N shards
+    names its cards as SLOTS, and shard k lives on slot k * S // N, so a
+    slot holds a run of consecutive shards.  Slots may repeat a device
+    (several slots on one card; the CPU tests).  No `torch.distributed`:
+    what crosses cards per batch is small (the queries, the joined (B, W)
+    hit lists, the mention answers, a few predicates and statistics), and
+    peer copies carry it;
+  * each slot's shards ship as ONE flat (n_slot * X,) tensor per field on
+    the slot's device, the reference's flat layout cut at slot
+    boundaries; shard k's local tier is a VIEW within its slot
+    (`_local_tier`): no copy per batch;
+  * a batch runs each slot's stages on the slot's device and stream
+    (`_Batch`); the collectives are copies to slot 0, the scoring slot,
+    then plain tensor operations in shard order 0..n-1: all_gather(axis=1,
+    tiled) is `torch.cat(.., 1)`, pmax a max and psum a sum.  Scoring the
+    joined stream once, on slot 0, replaces scoring it identically on
+    every shard;
+  * `lax.cond` on pmax'd predicates is a host-side branch: each decision
+    point's predicates of ALL slots come to the host together (one pinned
+    buffer, one event per slot, `_Batch.fetch`), so a batch makes at most
+    two host syncs at any shard or slot count, as the single path does
+    (ops/search_kernel.py);
   * each shard's range phase runs the port's kernels (K1, K2) through the
-    single path's `_batch_ranges`, with its path decisions per shard.
+    single path's `_batch_ranges` on its slot's card, with its path
+    decisions per shard.
 `STATS` counts the branches each batch took.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from dataclasses import dataclass
@@ -55,7 +67,6 @@ from ..ops.search_kernel import (
     _direct_candidates,
     _final_select,
     _final_select_matrix,
-    _host,
     _newest_gate,
     _newest_lookup,
     _plan_and_gather,
@@ -66,6 +77,7 @@ from ..ops.search_kernel import (
     pack_outputs,
     small_budget,
 )
+from ..ops.search_kernel import _count as _count_single
 
 MATRIX_MAX = 1024  # widest joined stream scored sort-free (the reference's)
 
@@ -87,22 +99,85 @@ def _count(*keys: str) -> None:
 
 @dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh of `n_shards` shards, all slices of `device`."""
+    """A 1-D mesh of `n_shards` shards over the devices `slots`: shard k
+    lives on slot k * len(slots) // n_shards.  Slot 0 scores."""
 
     n_shards: int
-    device: torch.device
+    slots: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if self.n_shards < 1:
+            raise ValueError(f"a mesh needs at least one shard, not {self.n_shards}")
+        if not 1 <= len(self.slots) <= self.n_shards:
+            raise ValueError(f"{len(self.slots)} slots for {self.n_shards} shards: a mesh needs 1..n_shards slots")
+
+    @property
+    def device(self) -> torch.device:
+        """The scoring slot's device: the program's inputs and outputs."""
+        return self.slots[0]
+
+    def slot_of(self, k: int) -> int:
+        return k * len(self.slots) // self.n_shards
+
+    def shard_range(self, s: int) -> Tuple[int, int]:
+        """Slot s's run of shards [first, end)."""
+        S, n = len(self.slots), self.n_shards
+        return -(-s * n // S), -(-(s + 1) * n // S)
 
 
-def make_mesh(n_shards: Optional[int] = None, device=None) -> Mesh:
-    """`n_shards` shards (default 1) on `device` (default utils.device.device())."""
-    if device is None:
-        from ..utils.device import device as default_device
+def _slot_device(d) -> torch.device:
+    """A slot's device, its card named by index; raises when it is absent."""
+    d = torch.device(d)
+    if d.type != "cuda":
+        return d
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"mesh slot {d}: CUDA is unavailable")
+    if d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    if d.index >= torch.cuda.device_count():
+        raise RuntimeError(f"mesh slot {d}: only {torch.cuda.device_count()} cards are visible")
+    return d
 
-        device = default_device()
-    n = int(n_shards or 1)
+
+def make_mesh(n_shards: Optional[int] = 1, devices=None) -> Mesh:
+    """`n_shards` shards (None: 1) over `devices`: a sequence names the
+    slots one by one; one device, or None for utils.device.device(), gives
+    one slot per visible card up to n_shards when it is `cuda` without an
+    index, else one slot on it.  CUDA_VISIBLE_DEVICES picks the cards."""
+    n = 1 if n_shards is None else int(n_shards)
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, not {n}")
-    return Mesh(n, torch.device(device))
+    if devices is None:
+        from ..utils.device import device as default_device
+
+        devices = default_device()
+    if isinstance(devices, (str, torch.device)):
+        d = torch.device(devices)
+        if d.type == "cuda" and d.index is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("a mesh over the visible cards: CUDA is unavailable")
+            devices = [torch.device("cuda", i) for i in range(min(n, torch.cuda.device_count()))]
+        else:
+            devices = [d]
+    return Mesh(n, tuple(_slot_device(d) for d in devices))
+
+
+def describe_mesh(mesh: Mesh) -> str:
+    """The shard -> card map, each card's name and memory, and whether each
+    pair of cards reaches the other directly (peer access)."""
+    parts = []
+    for s, d in enumerate(mesh.slots):
+        a, b = mesh.shard_range(s)
+        what = str(d)
+        if d.type == "cuda":
+            prop = torch.cuda.get_device_properties(d)
+            what += f" ({prop.name}, {prop.total_memory / 2**30:.1f} GiB)"
+        parts.append(f"shards {a}-{b - 1} on slot {s}: {what}")
+    cards = sorted({d.index for d in mesh.slots if d.type == "cuda"})
+    peers = [f"{a}->{b} {'peer' if torch.cuda.can_device_access_peer(a, b) else 'through the host'}"
+             for a in cards for b in cards if a != b]
+    return f"{mesh.n_shards} shards over {len(mesh.slots)} slots: " + "; ".join(parts) + (
+        f"; copies {', '.join(peers)}" if peers else "")
 
 
 def hash_bounds(n_shards: int) -> np.ndarray:
@@ -112,8 +187,9 @@ def hash_bounds(n_shards: int) -> np.ndarray:
 
 @dataclass
 class ShardedView:
-    """Both tiers packed per shard: device fields flat (n_shards * X,) on
-    the mesh's device, docs_* bookkeeping host-side numpy (n_shards, X)."""
+    """Both tiers packed per shard and placed by put_sharded: each slot's
+    device fields under "slots", docs_* bookkeeping host-side numpy
+    (n_shards, X)."""
 
     file_tier: Dict
     mem_tier: Dict
@@ -239,16 +315,25 @@ SHARDED_DEVICE_FIELDS = (
 )
 
 
-def _device_fields(tier: Dict) -> Dict:
-    return {k: tier[k] for k in SHARDED_DEVICE_FIELDS if k in tier}
-
-
 def put_sharded(tier_np: Dict, mesh: Mesh, mentions: bool = True) -> Dict:
-    """Place a packed sharded tier: search fields as tensors on the mesh's
-    device (u32 as int32 storage), docs_* bookkeeping host-side numpy.
-    `mentions=False` keeps the mention table host-side (the file tier: the
-    search never reads it)."""
-    return tier_from_numpy(tier_np, mesh.device, mentions=mentions)
+    """Place a packed sharded tier: each slot's run of shards as one flat
+    (n_slot * X,) tensor per search field on the slot's device (u32 as
+    int32 storage), under "slots"; docs_* bookkeeping stays host-side
+    numpy.  `mentions=False` keeps the mention table host-side (the file
+    tier: the search never reads it)."""
+    n = mesh.n_shards
+    placed = [k for k in SHARDED_DEVICE_FIELDS if k in tier_np and (mentions or not k.startswith("mention"))]
+    out = {k: v for k, v in tier_np.items() if k not in placed}
+    slots = []
+    for s, dev in enumerate(mesh.slots):
+        a, b = mesh.shard_range(s)
+        part = {}
+        for k in placed:
+            x = tier_np[k].shape[0] // n  # mention_len is (n,): x = 1
+            part[k] = tier_np[k][a * x : b * x]
+        slots.append(tier_from_numpy(part, dev))
+    out["slots"] = tuple(slots)
+    return out
 
 
 def build_sharded_view(
@@ -268,77 +353,192 @@ def build_sharded_view(
     )
 
 
-def search_tiers(view: ShardedView) -> Tuple[Dict, Dict]:
-    """The (file, mem) device fields the sharded program takes; the file
-    tier's mention table is not consulted (supersession only asks the
+def slot_tiers(tier: Dict, mentions: bool = True) -> Tuple[Dict, ...]:
+    """A placed tier's per-slot search fields, the program's input; the
+    file tier's mention table is not consulted (supersession only asks the
     memory tier), as tier_view_for_search(..., mentions=False)."""
-    f = {k: v for k, v in _device_fields(view.file_tier).items() if not k.startswith("mention")}
-    return f, _device_fields(view.mem_tier)
+    return tuple({k: v for k, v in slot.items() if mentions or not k.startswith("mention")} for slot in tier["slots"])
 
 
-def _local_tier(tier: Dict, k: int, n: int) -> Dict:
-    """Shard k's tier: a view of each flat field's k-th block (no copy),
-    and its own mention_len."""
+def search_tiers(view: ShardedView) -> Tuple[Tuple[Dict, ...], Tuple[Dict, ...]]:
+    """The (file, mem) per-slot fields the sharded program takes."""
+    return slot_tiers(view.file_tier, mentions=False), slot_tiers(view.mem_tier)
+
+
+def _local_tier(tier: Sequence[Dict], k: int, mesh: Mesh) -> Dict:
+    """Shard k's tier: a view of the k-th block of each flat field within
+    its slot (no copy), and its own mention_len."""
+    s = mesh.slot_of(k)
+    a, b = mesh.shard_range(s)
+    j = k - a
     out = {}
-    for key, v in tier.items():
-        if key == "mention_len":
-            out[key] = v[k]
-        else:
-            size = v.shape[0] // n
-            out[key] = v[k * size : (k + 1) * size]
+    for key, v in tier[s].items():
+        size = v.shape[0] // (b - a)
+        out[key] = v[j] if key == "mention_len" else v[j * size : (j + 1) * size]
     return out
 
 
-def _sharded_batch_impl(p: SearchParams, n: int, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts):
-    """(B, Q) batch over n shards: the reference's shard body, branch for
-    branch, with every branch decided on the host from all shards'
-    predicates at once."""
+class _Batch:
+    """Where one batch runs: each slot's device and stream, and the
+    crossings between slot s and the scoring slot 0.
+
+    On a card every slot has a stream (the caller's per-slot streams, or
+    each device's current one); the program runs inside slot 0's, and a
+    slot's stages inside its own (`on`).  A crossing to another card is a
+    copy, which PyTorch orders after the source stream's work and before
+    the destination stream's.  A crossing between two streams of one card
+    is no copy: the consumer's stream waits on an event of the producer's,
+    and the tensor is marked in use by the consumer's stream, so that the
+    allocator does not hand its block to the producer's stream early."""
+
+    def __init__(self, mesh: Mesh, streams=None):
+        self.devices = mesh.slots
+        self.streams = None
+        if mesh.device.type == "cuda":
+            self.streams = tuple(streams) if streams is not None else tuple(
+                torch.cuda.current_stream(d) for d in mesh.slots)
+
+    def on(self, s: int):
+        return torch.cuda.stream(self.streams[s]) if self.streams else contextlib.nullcontext()
+
+    def _cross(self, xs, src: int, dst: int):
+        if self.streams is None or self.streams[src] == self.streams[dst]:
+            return [x.to(self.devices[dst]) for x in xs]
+        if self.devices[src] != self.devices[dst]:
+            # Inside slot s's context both cards' current streams are the
+            # slots' own; the copy runs on the source's.
+            with self.on(src if dst == 0 else dst):
+                return [x.to(self.devices[dst], non_blocking=True) for x in xs]
+        ev = torch.cuda.Event()
+        ev.record(self.streams[src])
+        self.streams[dst].wait_event(ev)
+        for x in xs:
+            x.record_stream(self.streams[dst])
+        return list(xs)
+
+    def send(self, s: int, *xs):
+        """Tensors made on slot 0's stream, for slot s's."""
+        return xs if s == 0 else self._cross(xs, 0, s)
+
+    def home(self, s: int, *xs):
+        """Tensors made on slot s's stream, for slot 0's."""
+        return xs if s == 0 else self._cross(xs, s, 0)
+
+    def fetch(self, per_slot: Sequence[Sequence[torch.Tensor]]) -> List[List[bool]]:
+        """Every slot's 0-d predicates to the host in one sync: each slot's
+        copied into one pinned buffer behind an event on its stream, then
+        one wait for them all."""
+        _count_single("host_syncs")
+        sizes = [len(ps) for ps in per_slot]
+        if self.streams is None:  # the CPU
+            flat = torch.stack([p for ps in per_slot for p in ps]).tolist()
+        else:
+            host = torch.empty(sum(sizes), dtype=torch.bool, pin_memory=True)
+            events, off = [], 0
+            for s, ps in enumerate(per_slot):
+                with self.on(s):
+                    host[off : off + len(ps)].copy_(torch.stack(ps), non_blocking=True)
+                    events.append(torch.cuda.Event())
+                    events[-1].record(self.streams[s])
+                off += len(ps)
+            for ev in events:
+                ev.synchronize()
+            flat = host.tolist()
+        out, off = [], 0
+        for n in sizes:
+            out.append([bool(v) for v in flat[off : off + n]])
+            off += n
+        return out
+
+    def join(self) -> None:
+        """Slot 0's stream waits for everything every slot has queued."""
+        for s in range(1, len(self.devices)):
+            if self.streams is not None and self.streams[s] != self.streams[0]:
+                ev = torch.cuda.Event()
+                ev.record(self.streams[s])
+                self.streams[0].wait_event(ev)
+
+
+def _sharded_batch_impl(p: SearchParams, mesh: Mesh, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts,
+                        streams=None):
+    """(B, Q) batch over the mesh's shards: the reference's shard body,
+    branch for branch, each shard's stages on its slot's card, every branch
+    decided on the host from all shards' predicates at once.  The inputs
+    and outputs are on slot 0's device, the outputs queued on slot 0's
+    stream; `streams` are the slots' streams (default: each device's
+    current one)."""
+    run = _Batch(mesh, streams)
+    with run.on(0):
+        out = _batch_body(p, mesh, run, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts)
+        run.join()
+    return out
+
+
+def _batch_body(p, mesh, run, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts):
     B = queries.shape[0]
-    dev = queries.device
-    f_loc = [_local_tier(file_tier, k, n) for k in range(n)]
-    m_loc = [_local_tier(mem_tier, k, n) for k in range(n)]
+    n, S = mesh.n_shards, len(mesh.slots)
+    shards = [range(*mesh.shard_range(s)) for s in range(S)]
+    f_loc = [_local_tier(file_tier, k, mesh) for k in range(n)]
+    m_loc = [_local_tier(mem_tier, k, mesh) for k in range(n)]
 
-    # Range phase per shard, whole batch at once; the emitting lookup feeds
-    # the direct path.
-    want_emit = "inter" in file_tier and p.query_len <= 256
-    f_lo, f_cnt, m_lo, m_cnt, r_trunc, emit = map(list, zip(*(
-        _batch_ranges(p, f_loc[k], m_loc[k], queries, q_lens, want_emit=want_emit) for k in range(n)
-    )))
-
-    def pmax(xs):
-        return torch.stack(xs).amax(0)
-
-    # Global predicates (the reference's pmax'd ones), one host sync.
-    has_mem = pmax([c.sum() for c in m_cnt]) > 0
-    mem_mentions_any = mem_tier["mention_len"].amax() > 0
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+    # Range phase per shard on its slot, whole batch at once; the emitting
+    # lookup feeds the direct path.  Each slot's predicates are reduced
+    # over its shards there (the pmax within the slot).
+    want_emit = "inter" in file_tier[0] and p.query_len <= 256
+    E_direct = 2 if p.query_len <= 128 else 1
     # candidate_cap against n * P_SMALL, not P_SMALL: the sorted ranker's
     # top C must fit the joined P_SMALL hit lists of every shard.
     small_ok = p.postings_budget > P_SMALL and p.candidate_cap <= n * P_SMALL
-    small = false
-    if small_ok:
-        p_small = dataclasses.replace(p, postings_budget=P_SMALL)
-        small = pmax([small_budget(p, f_cnt[k], m_cnt[k], B)[1].amax() for k in range(n)]) <= P_SMALL
-    direct_ok = false
-    if want_emit:
-        E_direct = 2 if p.query_len <= 128 else 1
-        ov_tot = [torch.clamp(f_cnt[k] - torch.where(emit[k][1], E_direct, 0), min=0).sum(1).amax() for k in range(n)]
-        m_tot = [m_cnt[k].sum(1).amax() for k in range(n)]
-        direct_ok = (pmax(ov_tot) <= F_DIRECT) & (pmax(m_tot) <= P_MEM_DIRECT)
-    has_mem, mem_mentions_any, small, direct_ok = _host(has_mem, mem_mentions_any, small, direct_ok)
+    f_lo, f_cnt, m_lo, m_cnt, r_trunc, emit = ([None] * n for _ in range(6))
+
+    def smax(xs):
+        return torch.stack(xs).amax()
+
+    preds = []
+    for s in range(S):
+        with run.on(s):
+            qs, lens = run.send(s, queries, q_lens)
+            for k in shards[s]:
+                f_lo[k], f_cnt[k], m_lo[k], m_cnt[k], r_trunc[k], emit[k] = _batch_ranges(
+                    p, f_loc[k], m_loc[k], qs, lens, want_emit=want_emit)
+            false = torch.zeros((), dtype=torch.bool, device=qs.device)
+            small = direct = false
+            if small_ok:
+                small = smax([small_budget(p, f_cnt[k], m_cnt[k], B)[1].amax() for k in shards[s]]) <= P_SMALL
+            if want_emit:
+                ov = [torch.clamp(f_cnt[k] - torch.where(emit[k][1], E_direct, 0), min=0).sum(1).amax() for k in shards[s]]
+                direct = (smax(ov) <= F_DIRECT) & (smax([m_cnt[k].sum(1).amax() for k in shards[s]]) <= P_MEM_DIRECT)
+            preds.append([smax([m_cnt[k].sum() for k in shards[s]]) > 0,
+                          mem_tier[s]["mention_len"].amax() > 0, small, direct])
+
+    # Global predicates (the reference's pmax'd ones) from every slot's, one
+    # host sync: any slot's memory hit or mention, every slot small / direct.
+    got = run.fetch(preds)
+    has_mem = any(g[0] for g in got)
+    mem_mentions_any = any(g[1] for g in got)
+    small = small_ok and all(g[2] for g in got)
+    direct_ok = want_emit and all(g[3] for g in got)
 
     def combined_newest(d_flat, mask_flat):
         # Each candidate doc has one docid-range home shard; every shard
         # answers from its own table behind its own gate (the flag is
-        # global, the range test local), and a max combines the answers.
-        # All shards' gates reach the host in one sync.
+        # global, the range test local), and a max on slot 0 combines the
+        # answers (the reference's pmax).  The candidates go to every slot;
+        # all shards' gates reach the host in one sync.
         newest = torch.full_like(d_flat, -1)
         if not mem_mentions_any:
             return newest
-        live = _host(*(_newest_gate(m_loc[k], d_flat, mask_flat, True) for k in range(n)))
-        for k in range(n):
-            if live[k]:
-                newest = torch.maximum(newest, _newest_lookup(m_loc[k], d_flat, mask_flat))
+        cands, gates = [], []
+        for s in range(S):
+            with run.on(s):
+                cands.append(run.send(s, d_flat, mask_flat))
+                gates.append([_newest_gate(m_loc[k], *cands[s], True) for k in shards[s]])
+        live = run.fetch(gates)
+        for s in range(S):
+            with run.on(s):
+                answers = [_newest_lookup(m_loc[k], *cands[s]) for i, k in enumerate(shards[s]) if live[s][i]]
+                for a in run.home(s, *answers):
+                    newest = torch.maximum(newest, a)
         return newest
 
     def select_any(p_eff, d, o, inv):
@@ -355,69 +555,80 @@ def _sharded_batch_impl(p: SearchParams, n: int, file_tier, mem_tier, queries, q
         newest = combined_newest(cd.reshape(-1), c_valid.reshape(-1)).reshape(cd.shape)
         return _final_select(p, cd, co, csc, c_valid, newest, limits, min_scores, pcts), c_over
 
-    def joined(parts):
-        return torch.cat(parts, 1)  # the tiled all_gather, in shard order
-
+    # Per shard: its (d, o, inv) hit list, its (B,) postings total and
+    # (B,) overflow flags; each slot's lists and statistics go to slot 0.
     if direct_ok:
         # Gather-free file-tier candidates per shard from the emitted rows;
         # with a live memory tier (global has_mem) its postings ride along
         # through a P_MEM_DIRECT gather.  A hash lives on one shard, so the
         # joined direct streams are the single-card stream of the union.
         _count("batches", "direct_wide" if has_mem else "direct_narrow")
+        p_eff = p
         p_mem = dataclasses.replace(p, postings_budget=P_MEM_DIRECT)
-        ds, os_, invs, totals = [], [], [], []
-        for k in range(n):
+
+        def shard_part(k):
             rows, covered = emit[k]
             d_f, inv_f, tot_f = _direct_candidates(p, f_loc[k], rows, covered, f_lo[k], f_cnt[k], E_direct)
-            if has_mem:
-                d_m, _o, inv_m, tot_m, _over = _plan_and_gather(
-                    p_mem, f_loc[k], m_loc[k], f_lo[k], torch.zeros_like(m_cnt[k]), m_lo[k], m_cnt[k],
-                    use_mem=True, use_file=False,
-                )
-                ds.append(torch.cat([d_f, d_m], 1))
-                invs.append(torch.cat([inv_f, inv_m], 1))
-                os_.append(torch.cat([torch.zeros_like(d_f), torch.full_like(d_m, TIER_MEM)], 1))
-                totals.append(tot_f + tot_m)
-            else:
-                ds.append(d_f)
-                invs.append(inv_f)
-                os_.append(torch.zeros_like(d_f))
-                totals.append(tot_f)
-        out, c_over = select_any(p, joined(ds), joined(os_), joined(invs))
-        overs = []
+            if not has_mem:
+                return d_f, torch.zeros_like(d_f), inv_f, tot_f, None
+            d_m, _o, inv_m, tot_m, _over = _plan_and_gather(
+                p_mem, f_loc[k], m_loc[k], f_lo[k], torch.zeros_like(m_cnt[k]), m_lo[k], m_cnt[k],
+                use_mem=True, use_file=False,
+            )
+            o = torch.cat([torch.zeros_like(d_f), torch.full_like(d_m, TIER_MEM)], 1)
+            return torch.cat([d_f, d_m], 1), o, torch.cat([inv_f, inv_m], 1), tot_f + tot_m, None
     else:
         # Per-shard plan+gather at P_SMALL or at the full budget.
-        p_eff = p_small if (small_ok and small) else p
-        _count("batches", "small" if p_eff is not p else "full")
-        ds, os_, invs, totals, overs = map(list, zip(*(
-            _plan_and_gather(p_eff, f_loc[k], m_loc[k], f_lo[k], f_cnt[k], m_lo[k], m_cnt[k], use_mem=has_mem)
-            for k in range(n)
-        )))
-        out, c_over = select_any(p_eff, joined(ds), joined(os_), joined(invs))
+        p_eff = dataclasses.replace(p, postings_budget=P_SMALL) if small else p
+        _count("batches", "small" if small else "full")
 
-    truncated = torch.stack(r_trunc).any().expand(B)
-    for x in overs + ([c_over] if c_over is not None else []):
-        truncated = truncated | x
-    out["postings_scanned"] = torch.stack(totals).sum(0)  # psum
+        def shard_part(k):
+            return _plan_and_gather(p_eff, f_loc[k], m_loc[k], f_lo[k], f_cnt[k], m_lo[k], m_cnt[k], use_mem=has_mem)
+
+    lists, stats = [], []  # (d, o, inv) of every shard in shard order; each slot's statistics
+    for s in range(S):
+        with run.on(s):
+            parts = [shard_part(k) for k in shards[s]]
+            tr = torch.stack([r_trunc[k] for k in shards[s]]).any().expand(B)
+            for _d, _o, _inv, _tot, over in parts:
+                if over is not None:
+                    tr = tr | over
+            # The slot's statistics, (4, B): postings (psum), truncation,
+            # max postings of one hash and max blocks of one hash's run
+            # (pmax: a hash's postings live on one shard).
+            st = torch.stack([
+                torch.stack([tot for *_, tot, _over in parts]).sum(0),
+                tr.to(torch.int64),
+                torch.stack([(f_cnt[k] + m_cnt[k]).amax(1) for k in shards[s]]).amax(0),
+                torch.stack([(_tier_blocks(f_lo[k], f_cnt[k]) + _tier_blocks(m_lo[k], m_cnt[k])).amax(1)
+                             for k in shards[s]]).amax(0),
+            ])
+            homed = run.home(s, st, *(t for part in parts for t in part[:3]))
+        stats.append(homed[0])
+        lists.extend(homed[1:])
+
+    # The tiled all_gather, in shard order, and one scoring on slot 0.
+    out, c_over = select_any(p_eff, *(torch.cat(lists[i::3], 1) for i in range(3)))
+    st = torch.stack(stats)
+    truncated = st[:, 1].amax(0) > 0
+    if c_over is not None:
+        truncated = truncated | c_over
+    out["postings_scanned"] = st[:, 0].sum(0)
     out["truncated"] = truncated
-    # A hash's postings live on one shard, so the max of the local maxima
-    # is the global one (pmax).
-    out["max_per_hash"] = pmax([(f_cnt[k] + m_cnt[k]).amax(1) for k in range(n)])
-    out["max_blocks_per_hash"] = pmax(
-        [(_tier_blocks(f_lo[k], f_cnt[k]) + _tier_blocks(m_lo[k], m_cnt[k])).amax(1) for k in range(n)]
-    )
+    out["max_per_hash"] = st[:, 2].amax(0)
+    out["max_blocks_per_hash"] = st[:, 3].amax(0)
     return out
 
 
 @torch.inference_mode()
 def sharded_search_batch(params: SearchParams, mesh: Mesh, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts):
     """(B, Q) batched hash-range-sharded search, the serving program: the
-    tiers are search_tiers' flat fields; queries (B, Q) and the (B,)
+    tiers are search_tiers' per-slot fields; queries (B, Q) and the (B,)
     scalars are tensors, arrays or values.  Returns the single path's
-    output dict of (B, ...) tensors."""
+    output dict of (B, ...) tensors on slot 0's device."""
     dev = mesh.device
     return _sharded_batch_impl(
-        params, mesh.n_shards, file_tier, mem_tier,
+        params, mesh, file_tier, mem_tier,
         *(_values(x, dev) for x in (queries, q_lens, limits, min_scores, pcts)),
     )
 
@@ -449,22 +660,24 @@ def sharded_search_batch_packed(params: SearchParams, mesh: Mesh, file_tier, mem
 
 
 @torch.inference_mode()
-def sharded_search_batch_packed_io(params: SearchParams, mesh: Mesh, file_tier, mem_tier, packed_in):
+def sharded_search_batch_packed_io(params: SearchParams, mesh: Mesh, file_tier, mem_tier, packed_in, streams=None):
     """The sharded counterpart of search_segments_batch_packed_io: the
-    int32 view of pack_inputs_np's array on the mesh's device in, the
-    packed outputs out."""
+    int32 view of pack_inputs_np's array on slot 0's device in, the packed
+    outputs out.  With `streams`, call it inside slot 0's stream: the
+    outputs are queued there, behind every slot's work."""
     Q = params.query_len
     qs = u32(packed_in[:, :Q])
     lens, limits, min_scores, pcts = (packed_in[:, Q + k].to(torch.int64) for k in range(4))
-    return pack_outputs(_sharded_batch_impl(params, mesh.n_shards, file_tier, mem_tier, qs, lens, limits, min_scores, pcts))
+    return pack_outputs(_sharded_batch_impl(params, mesh, file_tier, mem_tier, qs, lens, limits, min_scores, pcts, streams))
 
 
 def sharded_ingest_step(mesh: Mesh, batch_hashes: np.ndarray, batch_ids: np.ndarray):
     """Partition an ingest batch by hash range on the host, sort each
-    shard's (hash, docid) pairs on the mesh's device (ops/build.sort_postings),
-    and return the stacked sorted runs: two (n_shards, cap) int32 tensors of
-    u32 patterns, SENTINEL behind each shard's pairs (the building block of
-    a distributed segment build)."""
+    shard's (hash, docid) pairs on its slot's device
+    (ops/build.sort_postings), and return the sorted runs stacked on slot
+    0's device: two (n_shards, cap) int32 tensors of u32 patterns, SENTINEL
+    behind each shard's pairs (the building block of a distributed segment
+    build)."""
     from ..ops.build import sort_postings
 
     n = mesh.n_shards
@@ -479,7 +692,9 @@ def sharded_ingest_step(mesh: Mesh, batch_hashes: np.ndarray, batch_ids: np.ndar
     for k in range(n):
         h[k, : cuts[k + 1] - cuts[k]] = h_sorted[cuts[k] : cuts[k + 1]]
         i[k, : cuts[k + 1] - cuts[k]] = i_sorted[cuts[k] : cuts[k + 1]]
-    h_t = torch.from_numpy(h.view(np.int32)).to(mesh.device)
-    i_t = torch.from_numpy(i.view(np.int32)).to(mesh.device)
-    runs = [sort_postings(h_t[k], i_t[k], int(cuts[k + 1] - cuts[k])) for k in range(n)]
+    runs = []
+    for k in range(n):
+        dev = mesh.slots[mesh.slot_of(k)]
+        h_t, i_t = (torch.from_numpy(a[k].view(np.int32)).to(dev) for a in (h, i))
+        runs.append([r.to(mesh.device) for r in sort_postings(h_t, i_t, int(cuts[k + 1] - cuts[k]))])
     return torch.stack([r[0] for r in runs]), torch.stack([r[1] for r in runs])

@@ -64,10 +64,24 @@ Phases, each fatal on failure:
      answer equal to tests/oracle.py over the analytic sub-oracle
      (bench_100m.oracle_postings); 100 timed batches, 100 pipelined, a profiled capture; 512 queries
      through BatchingSearcher.submit from 32 threads, each checked the same
-     way.  K1 and K2 must have launched on this path, the scans never
-     (launches_by_path "scale_134m").  Then the stage split at 134M
-     (measure.stage_split).  Last the tier is freed: the card's allocated
-     memory must come back within 64 MiB of its level before the phase.
+     way, with digests of the packed outputs.  K1 and K2 must have launched
+     on this path, the scans never (launches_by_path "scale_134m").  Then
+     the stage split at 134M (measure.stage_split).
+  1e. the 134M tier over 4 hash-range shards (bench_100m.shard_tier: two
+     whole bands, 2^28 postings, per shard), driven by
+     bench_100m.run_sharded through ShardedBatchingSearcher with the
+     launch counters at 0, twice: (a) one slot per visible card up to 4
+     (on one card: four views of phase 1d's tier, no copy); (b) four slots,
+     one per visible card and cuda:0 again (on one card: four 2 GiB copies,
+     four streams, the joins).  Each: every answer equal to the oracle, the
+     packed outputs' digests equal to phase 1d's single program's (the
+     same batches from the same seed), K1 and K2 4 launches per batch, <= 2
+     host syncs per batch, host ms p50/p99 and the card span beside phase
+     1d's, each card's peak, each card freed after it (launches_by_path
+     "scale_134m_mesh4").  With two cards or more, K1 and K2 on the last
+     card from a thread whose current device is cuda:0, bit-equal to their
+     plain versions.  Last phase 1d's tier is freed: every card's allocated
+     memory must come back within 64 MiB of its level before phase 1d.
   2. serving at the reference bench's scale (bench.py: 10M docs x 24 hashes
      = 240M postings): bulk-load through the port's MultiIndex, checkpoint
      to disk through merge_segments_auto (it must take the device merge,
@@ -92,7 +106,8 @@ Phases, each fatal on failure:
      same load against fronts of 1, 2, 4 and 8 pumps.
   2c. mesh serving: a copy of phase 2's checkpointed directory (taken before
      its writes) served through build_server with --mesh-shards 8 and a
-     search port (parallel/: 8 shards as slices of the card).  With the
+     search port (parallel/: 8 shards over the visible cards, one slot per
+     card up to 8; the shard -> card map logged).  With the
      launch counters at 0: the same 512 searches through the Python front
      and the native front, every answer equal to the oracle and every body
      byte-equal to phase 2's Python server's; phase 2's write mix (every
@@ -100,7 +115,7 @@ Phases, each fatal on failure:
      groups, which must take the sharded program's P_SMALL path and its
      full-budget path (parallel.sharded.STATS).  K1 and K2 must launch at
      least 8 times per sharded batch, the scans never, with at most 2 host
-     syncs per batch.  Then dryrun_multichip(8) on the card.
+     syncs per batch.  Then dryrun_multichip(8) over the visible cards.
   2d. the replicated deployment: a durable coordinator through the CLI
      (`python -m acoustid_index_tpu_torch.main --coordinator --coordinator-dir
      D --port 0`) and replicas A and B through build_server in this process
@@ -196,7 +211,7 @@ MERGE_SOURCES = 8  # phase 1b: sources of each merged run (plus one newer source
 MERGE_SIZES = (100_000, 1_000_000, 10_000_000)  # phase 1b: postings of the runs, each checked bit for bit and timed
 MERGE_ROUNDS = 3
 MODEL_BATCH = 256  # phase 2b: queries of the model wrapper's forward
-MESH_SHARDS = 8  # phase 2c: shards of the sharded server (slices of the one card)
+MESH_SHARDS = 8  # phase 2c: shards of the sharded server (over the visible cards, one slot per card)
 CLI_SHARDS, CLI_DOCS = 4, 12_000  # phase 3: the CLI's --mesh-shards, and the docs of its pre-built index
 CLI_RESIDENT_MAX_BYTES = 64 * 1024  # phase 3: its file tier interleaves (~73K entries per shard)
 # Phase 2d: docs written through the changelog (the bench's 10M cut to
@@ -447,8 +462,9 @@ def phase1d_scale(dev):
     """The 134M scale point (acoustid_index_tpu_torch/bench_100m.py): the
     tier built on the card; K1 and K2 at shapes (e)-(g) bit-equal to
     their plain versions, then timed; with the launch counters at 0, the
-    bench's run checked against the analytic oracle; the stage split; the
-    tier freed.  Returns (launches on the path, kernel records, figures)."""
+    bench's run checked against the analytic oracle; the stage split.
+    Returns (launches on the path, kernel records, figures, the tier and
+    each card's allocation before it, for phase 1e, which frees it)."""
     import numpy as np
     import torch
 
@@ -456,12 +472,11 @@ def phase1d_scale(dev):
     from acoustid_index_tpu_torch import measure as m
     from acoustid_index_tpu_torch.engine.searcher import Searcher
     from acoustid_index_tpu_torch.ops import block_lookup as bl
-    from oracle import OracleSegment, oracle_search
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
+    base = {d: torch.cuda.memory_allocated(d) for d in range(torch.cuda.device_count())}
     snap, fig = bench_100m.build_timed(dev, lambda msg: log(f"phase1d: {msg}"))
     check(snap.file_view["inter"].numel() == 2**31 and snap.file_view["inter"].is_cuda,
           f"the 134M tier holds {snap.file_view['inter'].numel()} entries on {snap.file_view['inter'].device}")
@@ -473,13 +488,9 @@ def phase1d_scale(dev):
     del cases
     torch.cuda.empty_cache()
 
-    def oracle(q):
-        return oracle_search([OracleSegment(bench_100m.oracle_postings(q), {})], q, limit=bench_100m.LIMIT,
-                             min_score=bench_100m.MIN_SCORE, pct=bench_100m.PCT)
-
     for k in bl.LAUNCHES:
         bl.LAUNCHES[k] = 0
-    fig.update(bench_100m.run(dev, snap, oracle, lambda msg: log(f"phase1d: {msg}")))
+    fig.update(bench_100m.run(dev, snap, scale_oracle, lambda msg: log(f"phase1d: {msg}")))
     torch.cuda.synchronize()
     launches = dict(bl.LAUNCHES)
     check_launches(launches, "phase1d")
@@ -488,15 +499,139 @@ def phase1d_scale(dev):
     packs = [bench_100m.pack(*bench_100m.make_queries(rng)[1:]) for _ in range(m.STAGE_BATCHES)]
     fig["stages"] = m.stage_split(Searcher(dev), snap, bench_100m.params(), packs, log=lambda msg: log(f"phase1d: {msg}"),
                                   label="134M")
-    del snap
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated(dev) - base
-    check(left <= 64 * 2**20, f"phase1d: {left / 2**20:.1f} MiB of the 134M phase still allocated after it")
-    fig["allocated_after_mib"] = left / 2**20
     fig["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase1d: the tier freed ({left / 2**20:.1f} MiB above the level before the phase); done in {fig['phase_s']:.1f} s")
-    return launches, results, fig
+    log(f"phase1d: done in {fig['phase_s']:.1f} s; the tier goes on to phase 1e")
+    return launches, results, fig, {"snap": snap, "base": base}
+
+
+def scale_oracle(q):
+    """tests/oracle.py over the 134M corpus's postings of the query's
+    hashes (bench_100m.oracle_postings), at the bench's limit, min_score
+    and pct."""
+    from acoustid_index_tpu_torch import bench_100m
+    from oracle import OracleSegment, oracle_search
+
+    return oracle_search([OracleSegment(bench_100m.oracle_postings(q), {})], q, limit=bench_100m.LIMIT,
+                         min_score=bench_100m.MIN_SCORE, pct=bench_100m.PCT)
+
+
+# ---------------------------------------------------------------- phase 1e
+
+
+def phase1e_mesh_134m(held, single):
+    """Phase 1d's 134M tier over MESH_SHARDS hash-range shards
+    (bench_100m.shard_tier), run by bench_100m.run_sharded twice: (a) one
+    slot per visible card up to 4 (on one card: views of the tier, no
+    copy), (b) four slots, one per visible card and then cuda:0 again (on
+    one card: four copies, four streams, the joins).  Each with the launch
+    counters at 0: every answer equal to the oracle, the packed outputs'
+    digests equal to phase 1d's single program's, K1 and K2 4 launches per
+    batch, <= 2 host syncs per batch, each card freed after it.  With two
+    cards or more, K1 and K2 on the last card from a thread whose current
+    device is card 0, against their plain versions.  Last, phase 1d's tier
+    is freed: every card back within 64 MiB of its level before phase 1d.
+    Returns (launches on the path, figures)."""
+    import torch
+
+    from acoustid_index_tpu_torch import bench_100m
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.parallel import sharded as sh
+
+    count = torch.cuda.device_count()
+    n = bench_100m.MESH_SHARDS
+    cards = [torch.device("cuda", i) for i in range(min(n, count))]
+    placements = {"cards": sh.make_mesh(n), "slots": sh.make_mesh(n, cards + [cards[0]] * (n - len(cards)))}
+    check(placements["cards"].slots == tuple(cards), f"make_mesh({n}) took {placements['cards'].slots}, not {cards}")
+    launches = dict.fromkeys(bl.LAUNCHES, 0)
+    figs = {"visible_cards": count}
+    for label, mesh in placements.items():
+        log(f"phase1e: {label}: {torch.cuda.device_count()} visible cards; {sh.describe_mesh(mesh)}")
+        for d in range(count):
+            torch.cuda.synchronize(d)
+        level = [torch.cuda.memory_allocated(d) for d in range(count)]
+        t0 = time.perf_counter()
+        sharded = bench_100m.shard_tier(held["snap"], mesh)
+        shard_s = time.perf_counter() - t0
+        for k in bl.LAUNCHES:
+            bl.LAUNCHES[k] = 0
+        fig = bench_100m.run_sharded(sharded, mesh, scale_oracle, lambda msg: log(f"phase1e {label}: {msg}"))
+        for d in range(count):
+            torch.cuda.synchronize(d)
+        got = dict(bl.LAUNCHES)
+        for k in launches:
+            launches[k] += got[k]
+        check_launches(got, f"phase1e {label}")
+        per = fig["timed"]["launches_per_batch"]
+        check(per == {"block_count": float(n), "block_count_emit": float(n)},
+              f"phase1e {label}: K1/K2 launches per batch {per}, not {n} each")
+        check(fig["timed"]["host_syncs_per_batch"] <= 2, f"phase1e {label}: {fig['timed']['host_syncs_per_batch']} host syncs per batch")
+        check(fig["digests"] == single["digests"],
+              f"phase1e {label}: packed outputs differ from phase 1d's single program: {fig['digests']} against {single['digests']}")
+        del sharded
+        torch.cuda.empty_cache()
+        left = [(torch.cuda.memory_allocated(d) - level[d]) / 2**20 for d in range(count)]
+        check(max(left) <= 64, f"phase1e {label}: MiB still allocated per card after the run: {left}")
+        fig.update(shard_tier_s=shard_s, allocated_after_mib=left)
+        t, t1 = fig["timed"], single["timed"]
+        log(f"phase1e {label}: every answer equal to the oracle; outputs byte-equal to phase 1d's; host ms per batch p50 "
+            f"{t['host_ms_p50']:.3f} p99 {t['host_ms_p99']:.3f} (single {t1['host_ms_p50']:.3f} / {t1['host_ms_p99']:.3f}); "
+            f"card span p50 {t['card_span_ms_p50']:.3f} ms (single {t1['card_span_ms_p50']:.3f}); launches per batch {per}; "
+            f"host syncs per batch {t['host_syncs_per_batch']}; peak GiB per card {fig['peak_allocated_gib']}")
+        figs[label] = fig
+    if count >= 2:
+        figs["cross_card_kernels"] = cross_card_kernels(count)
+
+    snap = held.pop("snap")
+    del snap
+    torch.cuda.empty_cache()
+    left = {d: (torch.cuda.memory_allocated(d) - held["base"][d]) / 2**20 for d in range(count)}
+    check(max(left.values()) <= 64, f"phase1e: MiB of the 134M phases still allocated per card after them: {left}")
+    figs["allocated_after_mib"] = left
+    log(f"phase1e: the 134M tier freed ({left} MiB above each card's level before phase 1d)")
+    return launches, figs
+
+
+def cross_card_kernels(count: int) -> dict:
+    """K1 and K2 on the last card, launched from a thread whose current
+    device is card 0 (as a front's pump thread may be), each bit-equal to
+    its plain version on the same inputs."""
+    import torch
+
+    from acoustid_index_tpu_torch import measure as m
+    from acoustid_index_tpu_torch.ops import block_lookup as bl
+    from acoustid_index_tpu_torch.ops.layout import BLOCK, to_storage
+
+    last = torch.device("cuda", count - 1)
+    out, errors = {}, []
+
+    def work():
+        try:
+            torch.cuda.set_device(0)
+            g = torch.Generator(device=last).manual_seed(21)
+            nblk = 8192
+            h = m.sorted_table(nblk * BLOCK, nblk * BLOCK - 3000, g, last)
+            inter = m.interleave(h, torch.randint(1, 0xFFFFFFFF, h.shape, generator=g, device=last, dtype=torch.int64))
+            table = to_storage(h)
+            blk = torch.randint(0, nblk, (32768,), generator=g, device=last, dtype=torch.int64)
+            q = h[blk * BLOCK + torch.randint(0, BLOCK, blk.shape, generator=g, device=last)]
+            q[::3] = torch.randint(0, 0xFFFFFFFF, q[::3].shape, generator=g, device=last, dtype=torch.int64)
+            k1, k2 = bl.block_count(table, blk, q), bl.block_count_emit(inter, blk, q)
+            torch.cuda.synchronize(last)
+            k1_plain, k2_plain = bl.block_count_plain(table, blk, q), bl.block_count_emit_plain(inter, blk, q)
+            out.update(current_device=torch.cuda.current_device(), card=str(k1[0].device),
+                       k1_equal=all(torch.equal(a, b) for a, b in zip(k1, k1_plain)),
+                       k2_equal=all(torch.equal(a, b) for a, b in zip(k2, k2_plain)))
+        except Exception as exc:  # noqa: BLE001 -- fatal, reported below
+            errors.append(repr(exc))
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    check(not errors, f"phase1e: K1/K2 on {last} from a thread on cuda:0 failed: {errors}")
+    check(out["current_device"] == 0 and out["card"] == str(last) and out["k1_equal"] and out["k2_equal"],
+          f"phase1e: K1/K2 on {last} from a thread on cuda:0: {out}")
+    log(f"phase1e: K1 and K2 on {last} launched from a thread whose current device is cuda:0, bit-equal to their plain versions")
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -908,8 +1043,9 @@ def phase2c_mesh(handoff, n_docs: int, native_built, base_seg):
     to phase 2's Python server; the write mix; the hot-hash groups on the
     sharded program's P_SMALL and full-budget paths; K1 and K2 launched at
     least MESH_SHARDS times per batch, at most 2 host syncs per batch;
-    then dryrun_multichip(MESH_SHARDS) on the card."""
+    then dryrun_multichip(MESH_SHARDS) over the visible cards."""
     import numpy as np
+    import torch
 
     from acoustid_index_tpu_torch import main as cli
     from acoustid_index_tpu_torch.entry import dryrun_multichip
@@ -918,7 +1054,6 @@ def phase2c_mesh(handoff, n_docs: int, native_built, base_seg):
     from acoustid_index_tpu_torch.ops import search_kernel as sk
     from acoustid_index_tpu_torch.parallel import sharded as sh
     from acoustid_index_tpu_torch.parallel.serving import ShardedBatchingSearcher
-    from acoustid_index_tpu_torch.utils.device import device
 
     tmp, queries, py_bodies = handoff["dir"], handoff["queries"], handoff["bodies"]
     stats = {"shards": MESH_SHARDS, "searches": len(queries)}
@@ -934,20 +1069,26 @@ def phase2c_mesh(handoff, n_docs: int, native_built, base_seg):
         stats["reopen_s"] = time.perf_counter() - t1
         check(isinstance(mi.searcher, ShardedBatchingSearcher) and mi.searcher.n_shards == MESH_SHARDS,
               f"build_server did not shard search: {type(mi.searcher).__name__}")
+        cards = tuple(torch.device("cuda", i) for i in range(min(MESH_SHARDS, torch.cuda.device_count())))
+        check(mi.searcher.mesh.slots == cards, f"--mesh-shards {MESH_SHARDS} took {mi.searcher.mesh.slots}, not {cards}")
+        stats["mesh"] = sh.describe_mesh(mi.searcher.mesh)
+        log(f"phase2c: {torch.cuda.device_count()} visible cards; {stats['mesh']}")
         ref = mi._get_ref("main")
         index = ref.index
         mi._release_ref(ref)
         snap = index.ensure_views(index.acquire_reader())
         check(not snap.memory and len(snap.file) == 1, "reopened index is not one file segment")
-        inter = snap.file_view.get("inter")
-        check(inter is not None and inter.device.type == device().type, "the sharded file tier is not interleaved on the card")
-        shard_cap = inter.numel() // (2 * MESH_SHARDS)
-        live = snap.file_view["seg_len"].reshape(MESH_SHARDS, -1).sum(1).tolist()
+        slots = snap.file_view["slots"]
+        check(all("inter" in f and f["inter"].device == d for f, d in zip(slots, cards)),
+              "the sharded file tier is not interleaved on the slots' cards")
+        entries = sum(f["inter"].numel() for f in slots)
+        shard_cap = entries // (2 * MESH_SHARDS)
+        live = torch.cat([f["seg_len"].cpu() for f in slots]).reshape(MESH_SHARDS, -1).sum(1).tolist()
         check(sum(live) == n_docs * HASHES_PER_DOC, f"the shards hold {sum(live)} postings")
-        stats.update(file_tier_bytes=inter.numel() * 4, shard_cap=shard_cap, shard_postings=live)
+        stats.update(file_tier_bytes=entries * 4, shard_cap=shard_cap, shard_postings=live)
         log(f"phase2c: reopened phase 2's directory over {MESH_SHARDS} shards in {stats['reopen_s']:.1f} s: "
-            f"{inter.numel() * 4 / 2**30:.2f} GiB interleaved, {shard_cap} entries per shard, postings per shard {live}")
-        del snap, inter
+            f"{entries * 4 / 2**30:.2f} GiB interleaved, {shard_cap} entries per shard, postings per shard {live}")
+        del snap, slots
 
         base = f"http://127.0.0.1:{server.port}"
         native = f"http://127.0.0.1:{front.port}"
@@ -1726,8 +1867,10 @@ def main() -> int:
     merge = timed("phase1b", phase1b_merge, dev)
     probe_launches, probe_kern = timed("phase1c", phase1c_probes, dev)
     kern += probe_kern
-    scale_launches, scale_kern, scale = timed("phase1d", phase1d_scale, dev)
+    scale_launches, scale_kern, scale, held = timed("phase1d", phase1d_scale, dev)
     kern += scale_kern
+    mesh134_launches, mesh134 = timed("phase1e", phase1e_mesh_134m, held, scale)
+    del held
     log(f"phase2: docs={N_DOCS} ({N_DOCS * HASHES_PER_DOC} postings; the reference bench scale, no cut)")
     t0 = time.perf_counter()
     base_seg = BaseSegment(*sorted_corpus(N_DOCS, dev), N_DOCS)
@@ -1740,7 +1883,8 @@ def main() -> int:
     model = timed("phase2b", phase2b_model, dev, N_DOCS, base_seg)
     del base_seg
     paths = (("Python HTTP", serving["launches"]), ("native front", serving["native"]["launches"]),
-             ("mesh serving", mesh["launches"]), ("model forward", model["launches"]), ("134M scale", scale_launches))
+             ("mesh serving", mesh["launches"]), ("model forward", model["launches"]), ("134M scale", scale_launches),
+             ("134M over 4 shards", mesh134_launches))
     for path, launches in paths:
         check(launches["block_count"] > 0, f"K1 block_count never launched on the {path} path")
         check(launches["block_count_emit"] > 0, f"K2 block_count_emit never launched on the {path} path")
@@ -1754,7 +1898,8 @@ def main() -> int:
     check(not ref_mods, f"modules of the JAX package or of probes/ were imported: {ref_mods}")
 
     total = time.perf_counter() - t_start
-    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase1d": scale, "phase2": serving, "phase2c": mesh,
+    detail = {"phase1": kern, "phase1b": merge, "phase1c_launches": probe_launches, "phase1d": scale, "phase1e": mesh134,
+              "phase2": serving, "phase2c": mesh,
               "phase2d": replica, "phase2b": model, "phase3": cli_stats, "phase4": bench_detail, "phase5": front_door,
               "phase_s": phase_s,
               "total_s": total, "nvidia_smi": smi}
@@ -1769,7 +1914,8 @@ def main() -> int:
                 "mesh_serving": mesh["launches"][name],
                 "replica": replica["A"]["launches"][name] + replica["B"]["launches"][name],
                 "model_forward": model["launches"][name],
-                "probes": probe_launches[name], "scale_134m": scale_launches[name], "bench": bench_launches[name],
+                "probes": probe_launches[name], "scale_134m": scale_launches[name],
+                "scale_134m_mesh4": mesh134_launches[name], "bench": bench_launches[name],
                 "front_door_134m": front_door["launches"][name]}
 
     def of(kernel):

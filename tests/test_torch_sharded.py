@@ -2,15 +2,18 @@
 against the JAX package's, exactly.
 
 The cases are those of tests/test_sharded.py and tests/test_sharded_blocked.py,
-one for one, each at 1, 2 and 8 shards.  Every case builds its segments in
-both packages from the same changes (each package with its own model and
-memseg), checks that both packages' _pack_tier_sharded agree field for
-field, and feeds one packed query batch to:
+one for one, each at (shards, slots) = (1, 1), (2, 1), (2, 2), (8, 1) and
+(8, 3): three slots over 8 shards hold runs of 3, 3 and 2.  Every case
+builds its segments in both packages from the same changes (each package
+with its own model and memseg), checks that both packages'
+_pack_tier_sharded agree field for field, and feeds one packed query batch
+to:
 
   * the reference's sharded_search_batch on the virtual 8-device CPU mesh
-    of tests/conftest.py (Pallas in interpret mode);
-  * the port's sharded_search_batch_packed (N shards as slices of the CPU
-    device; the kernels' plain versions);
+    of tests/conftest.py (Pallas in interpret mode), once per case and
+    shard count (`_reference`);
+  * the port's sharded_search_batch_packed (N shards over the slots, each
+    slot a CPU device; the kernels' plain versions);
   * the port's single path (search_segments_batch_packed_io).
 
 All seven output fields must equal the reference's (tolerance 0: integers
@@ -19,6 +22,7 @@ where no row truncated, tests/oracle.py.  Each batch asserts the branches it
 took (parallel.sharded.STATS) and at most two host syncs.
 """
 
+import hashlib
 import os
 
 import jax
@@ -50,7 +54,10 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual 
 
 FIELDS = ("ids", "scores", "count", "postings_scanned", "truncated", "max_per_hash", "max_blocks_per_hash")
 B = 8  # every batch pads to 8 rows
-SHARDS = (1, 2, 8)
+# (shards, slots); the ids of one slot are the shard counts alone.
+MESHES = [pytest.param(1, 1, id="1"), pytest.param(2, 1, id="2"), pytest.param(2, 2, id="2x2"),
+          pytest.param(8, 1, id="8"), pytest.param(8, 3, id="8x3")]
+_REFERENCE = {}  # (shards, inputs digest) -> the reference's outputs
 
 
 @pytest.fixture(autouse=True)
@@ -90,14 +97,37 @@ def assert_packs_equal(segs, n, slots):
         np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-def run_sharded(file_segs, mem_segs, requests, params, n, branches):
+def _reference(file_segs, mem_segs, params, n, batch):
+    """The reference's sharded_search_batch at n shards, and its packing
+    held to the port's, once per case and shard count: the meshes of one
+    shard count share it."""
+    digest = hashlib.sha256(repr((params, os.environ.get("AITPU_RESIDENT_MAX_BYTES"))).encode())
+    for tier in (file_segs, mem_segs):
+        digest.update(b"|")
+        for _, seg in tier:
+            for a in (seg.hashes, seg.docids, seg.docs_ids, seg.docs_alive):
+                digest.update(np.ascontiguousarray(a).tobytes())
+    for a in batch:
+        digest.update(a.tobytes())
+    key = (n, digest.hexdigest())
+    if key not in _REFERENCE:
+        assert_packs_equal(file_segs, n, 16)
+        assert_packs_equal(mem_segs, n, 8)
+        mesh = ref_sharded.make_mesh(n)
+        view = ref_sharded.build_sharded_view(
+            RefSnapshot(file=tuple(r for r, _ in file_segs), memory=tuple(r for r, _ in mem_segs)), mesh)
+        _REFERENCE[key] = jax.device_get(ref_sharded.sharded_search_batch(
+            params, mesh, *ref_sharded.search_tiers(view), *(jnp.asarray(a) for a in batch)))
+    return _REFERENCE[key]
+
+
+def run_sharded(file_segs, mem_segs, requests, params, n, branches, slots=1):
     """One batch of `requests` [(query, limit, min_score, pct)] through both
-    packages' sharded programs at n shards and the port's single path;
-    `branches` are the parallel.sharded.STATS keys the batch must bump.
-    Returns the port's outputs as numpy."""
+    packages' sharded programs at n shards (the port's over `slots` CPU
+    slots) and the port's single path; `branches` are the
+    parallel.sharded.STATS keys the batch must bump.  Returns the port's
+    outputs as numpy."""
     Q = params.query_len
-    assert_packs_equal(file_segs, n, 16)
-    assert_packs_equal(mem_segs, n, 8)
 
     qs = np.zeros((B, Q), np.uint32)
     lens = np.zeros(B, np.int32)
@@ -109,14 +139,9 @@ def run_sharded(file_segs, mem_segs, requests, params, n, branches):
         qs[i, : q.shape[0]] = q
         lens[i], limits[i], min_scores[i], pcts[i] = q.shape[0], limit, ms, pct
 
-    mesh = ref_sharded.make_mesh(n)
-    view = ref_sharded.build_sharded_view(RefSnapshot(file=tuple(r for r, _ in file_segs), memory=tuple(r for r, _ in mem_segs)), mesh)
-    want = jax.device_get(ref_sharded.sharded_search_batch(
-        params, mesh, *ref_sharded.search_tiers(view),
-        jnp.asarray(qs), *(jnp.asarray(x) for x in (lens, limits, min_scores, pcts)),
-    ))
+    want = _reference(file_segs, mem_segs, params, n, (qs, lens, limits, min_scores, pcts))
 
-    pmesh = port_sharded.make_mesh(n, "cpu")
+    pmesh = port_sharded.make_mesh(n, ["cpu"] * slots)
     pview = port_sharded.build_sharded_view(
         PortSnapshot(file=tuple(p for _, p in file_segs), memory=tuple(p for _, p in mem_segs)), pmesh
     )
@@ -169,8 +194,8 @@ def gather_branches(params, n, total_small=True):
 # ---- tests/test_sharded.py ----
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_sharded_matches_single_device_basic(n):
+@pytest.mark.parametrize("n,slots", MESHES)
+def test_sharded_matches_single_device_basic(n, slots):
     rng = np.random.default_rng(42)
     # Hashes spread over the whole u32 space so every shard owns some.
     docs1 = {i: rng.integers(0, 2**32, 20, dtype=np.uint32).tolist() for i in range(1, 30)}
@@ -179,13 +204,13 @@ def test_sharded_matches_single_device_basic(n):
     m1 = seg_from_docs(docs2, 2, deletes=[3, 7])
     query = docs1[5][:10] + docs2[30][:10] + docs1[3][:5]
     params = ref_sk.SearchParams(query_len=64, postings_budget=4096)
-    out = run_sharded([f1], [m1], [(query, 20, 1, 0)], params, n, gather_branches(params, n))
+    out = run_sharded([f1], [m1], [(query, 20, 1, 0)], params, n, gather_branches(params, n), slots)
     assert results(out, 0)[:2] == [(5, 10), (30, 10)]
 
 
-@pytest.mark.parametrize("n", SHARDS)
+@pytest.mark.parametrize("n,slots", MESHES)
 @pytest.mark.parametrize("seed", range(3))
-def test_sharded_matches_single_device_randomized(seed, n):
+def test_sharded_matches_single_device_randomized(seed, n, slots):
     rng = np.random.default_rng(seed)
     segs = []
     commit = 1
@@ -207,16 +232,16 @@ def test_sharded_matches_single_device_randomized(seed, n):
         for _ in range(5)
     ]
     params = ref_sk.SearchParams(query_len=64, postings_budget=4096)
-    run_sharded(file_segs, mem_segs, requests, params, n, gather_branches(params, n))
+    run_sharded(file_segs, mem_segs, requests, params, n, gather_branches(params, n), slots)
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_sharded_ingest_sorts_per_shard(n):
+@pytest.mark.parametrize("n,slots", MESHES)
+def test_sharded_ingest_sorts_per_shard(n, slots):
     rng = np.random.default_rng(0)
     h = rng.integers(0, 2**32, 5000, dtype=np.uint32)
     i = rng.integers(1, 1000, 5000, dtype=np.uint32)
     want_h, want_i = jax.device_get(ref_sharded.sharded_ingest_step(ref_sharded.make_mesh(n), h, i))
-    sh, si = port_sharded.sharded_ingest_step(port_sharded.make_mesh(n, "cpu"), h, i)
+    sh, si = port_sharded.sharded_ingest_step(port_sharded.make_mesh(n, ["cpu"] * slots), h, i)
     sh, si = sh.numpy().view(np.uint32), si.numpy().view(np.uint32)
     np.testing.assert_array_equal(sh, want_h)
     np.testing.assert_array_equal(si, want_i)
@@ -233,8 +258,8 @@ def test_sharded_ingest_sorts_per_shard(n):
     assert total == 5000
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_sharded_big_budget_branch_matches_single_device(n):
+@pytest.mark.parametrize("n,slots", MESHES)
+def test_sharded_big_budget_branch_matches_single_device(n, slots):
     """A hot hash with > P_SMALL postings forces the full-budget branch."""
     rng = np.random.default_rng(9)
     hot = 123456
@@ -242,7 +267,7 @@ def test_sharded_big_budget_branch_matches_single_device(n):
     docs[777] = [hot, 42, 43, 44]
     segs = [seg_from_docs(docs, commit_id=1)]
     params = ref_sk.SearchParams(query_len=64, postings_budget=4096)
-    out = run_sharded(segs, [], [([hot, 42, 43, 44], 5, 2, 0)], params, n, ["full", "select_sorted"])
+    out = run_sharded(segs, [], [([hot, 42, 43, 44], 5, 2, 0)], params, n, ["full", "select_sorted"], slots)
     assert results(out, 0)[0] == (777, 4)
 
 
@@ -267,8 +292,8 @@ def blocked_corpus():
     return rng, doc_hashes, seg_from_docs({i + 1: doc_hashes[i] for i in range(len(doc_hashes))}, 1)
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_sharded_blocked_path_matches_single_device(n, blocked_corpus):
+@pytest.mark.parametrize("n,slots", MESHES)
+def test_sharded_blocked_path_matches_single_device(n, slots, blocked_corpus):
     """Per-shard tables big enough for the two-level lookup (25,000 docs,
     ~600k postings)."""
     _, doc_hashes, seg = blocked_corpus
@@ -277,7 +302,7 @@ def test_sharded_blocked_path_matches_single_device(n, blocked_corpus):
     assert view["block_index"].shape[0] // n * BLOCK >= 64 * BLOCK  # the blocked lookup's size
     targets = rng.integers(1, len(doc_hashes) + 1, 3)
     params = ref_sk.SearchParams(query_len=64, postings_budget=512, candidate_cap=256)
-    out = run_sharded([seg], [], _doc_queries(rng, doc_hashes, targets), params, n, gather_branches(params, n))
+    out = run_sharded([seg], [], _doc_queries(rng, doc_hashes, targets), params, n, gather_branches(params, n), slots)
     for i, t in enumerate(targets):
         assert results(out, i)[0][0] == t
 
@@ -295,8 +320,8 @@ def direct_corpus():
     return rng, doc_hashes, upd, new_hashes, seg1, seg2
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_sharded_direct_path_supersession_matches_single_device(n, direct_corpus, monkeypatch):
+@pytest.mark.parametrize("n,slots", MESHES)
+def test_sharded_direct_path_supersession_matches_single_device(n, slots, direct_corpus, monkeypatch):
     """The direct path (emitting lookup, gather-free candidates, joined
     streams) with a live memory tier: cross-shard supersession decides.
     Forced interleaved so the emit path engages at this size.  A second
@@ -313,19 +338,19 @@ def test_sharded_direct_path_supersession_matches_single_device(n, direct_corpus
     victims = [int(upd[0]), int(upd[40]), int(rng.integers(1, len(doc_hashes)))]
     probes = [new_hashes[0], doc_hashes[upd[40] - 1], doc_hashes[victims[2] - 1]]
     reqs = [(np.concatenate([hs[:14], rng.integers(0, 2**32, 4, dtype=np.uint32)]).tolist(), 10, 2, 10) for hs in probes]
-    out = run_sharded([seg1], [seg2], reqs, params, n, ["direct_wide", scorer(2 * 64 + 16 + 64)])
+    out = run_sharded([seg1], [seg2], reqs, params, n, ["direct_wide", scorer(2 * 64 + 16 + 64)], slots)
     assert results(out, 0)[0][0] == victims[0]
     assert all(d != victims[1] for d, _ in results(out, 1))
 
     untouched = [t for t in rng.integers(1, len(doc_hashes) + 1, 12).tolist() if t not in set(upd.tolist())][:4]
     out = run_sharded([seg1], [seg2], _doc_queries(rng, doc_hashes, untouched), params, n,
-                      ["direct_narrow", scorer(2 * 64 + 16)])
+                      ["direct_narrow", scorer(2 * 64 + 16)], slots)
     for i, t in enumerate(untouched):
         assert results(out, i)[0][0] == t
 
 
-@pytest.mark.parametrize("n", SHARDS)
-def test_sharded_hot_hash_full_budget_matches_single_device(n, monkeypatch):
+@pytest.mark.parametrize("n,slots", MESHES)
+def test_sharded_hot_hash_full_budget_matches_single_device(n, slots, monkeypatch):
     """A hot hash (> P_SMALL postings on one shard) forces the full-budget
     gather and the sort of the joined stream (n * 2048 > MATRIX_MAX)."""
     monkeypatch.setenv("AITPU_RESIDENT_MAX_BYTES", str(64 * 1024))
@@ -335,7 +360,7 @@ def test_sharded_hot_hash_full_budget_matches_single_device(n, monkeypatch):
     seg = seg_from_docs({i + 1: doc_hashes[i] for i in range(len(doc_hashes))}, 1)
     params = ref_sk.SearchParams(query_len=64, postings_budget=2048, candidate_cap=1024)
     t = 17  # a hot-hash member: its query includes the hot run
-    out = run_sharded([seg], [], _doc_queries(rng, doc_hashes, [t]), params, n, ["full", "select_sorted"])
+    out = run_sharded([seg], [], _doc_queries(rng, doc_hashes, [t]), params, n, ["full", "select_sorted"], slots)
     assert results(out, 0)[0][0] == t
 
 
@@ -358,23 +383,29 @@ def test_empty_mention_shard_beside_a_live_one(delete_ffff):
     mem_np = port_sharded._pack_tier_sharded([m1[1]], 8, 8)
     assert mem_np["mention_len"][0] > 0 and (mem_np["mention_len"][1:7] == 0).all()
     params = ref_sk.SearchParams(query_len=64, postings_budget=4096)
-    out = run_sharded([f1], [m1], [(docs[1], 10, 1, 0), (docs[0xFFFFFFFF], 10, 1, 0)], params, 8,
-                      gather_branches(params, 8))
-    assert (0xFFFFFFFF in [d for d, _ in results(out, 1)]) != delete_ffff
+    for slots in (1, 3):  # the live shard and the empty ones on one slot, then apart
+        out = run_sharded([f1], [m1], [(docs[1], 10, 1, 0), (docs[0xFFFFFFFF], 10, 1, 0)], params, 8,
+                          gather_branches(params, 8), slots)
+        assert (0xFFFFFFFF in [d for d, _ in results(out, 1)]) != delete_ffff
 
 
 def test_local_tier_is_a_view():
-    """Shard k's tier is a view of the flat fields (no copy per batch)."""
+    """Shard k's tier is a view within its slot's flat fields (no copy per
+    batch), at one slot and at two."""
     rng = np.random.default_rng(4)
     f1 = seg_from_docs({i: rng.integers(0, 2**32, 12, dtype=np.uint32).tolist() for i in range(1, 50)}, 1)
-    mesh = port_sharded.make_mesh(4, "cpu")
-    view = port_sharded.build_sharded_view(PortSnapshot(file=(f1[1],), memory=(f1[1],)), mesh)
-    f_t, m_t = port_sharded.search_tiers(view)
-    for tier in (f_t, m_t):
-        for k in range(4):
-            local = port_sharded._local_tier(tier, k, 4)
-            for key, v in local.items():
-                assert v.untyped_storage().data_ptr() == tier[key].untyped_storage().data_ptr(), key
-                if key != "mention_len":
-                    assert v.shape[0] * 4 == tier[key].shape[0]
-                    assert v.storage_offset() == k * v.shape[0]
+    for slots in (1, 2):
+        mesh = port_sharded.make_mesh(4, ["cpu"] * slots)
+        view = port_sharded.build_sharded_view(PortSnapshot(file=(f1[1],), memory=(f1[1],)), mesh)
+        f_t, m_t = port_sharded.search_tiers(view)
+        for tier in (f_t, m_t):
+            assert len(tier) == slots
+            for k in range(4):
+                s = mesh.slot_of(k)
+                j = k - mesh.shard_range(s)[0]
+                local = port_sharded._local_tier(tier, k, mesh)
+                for key, v in local.items():
+                    assert v.untyped_storage().data_ptr() == tier[s][key].untyped_storage().data_ptr(), key
+                    if key != "mention_len":
+                        assert v.shape[0] * (4 // slots) == tier[s][key].shape[0]
+                        assert v.storage_offset() == j * v.shape[0]
