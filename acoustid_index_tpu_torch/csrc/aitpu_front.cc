@@ -73,6 +73,9 @@ constexpr int64_t DEFAULT_TIMEOUT_MS = 500;
 constexpr int64_t MAX_TIMEOUT_MS = 10000;
 constexpr int64_t DEFAULT_LIMIT = 40;
 constexpr int64_t MAX_LIMIT = 100;
+// Upper bounds (ms) of the queue-wait histogram's bins; one more bin is +Inf.
+constexpr int64_t QUEUE_WAIT_BUCKETS_MS[] = {1, 5, 10, 50, 100, 500};
+constexpr int QUEUE_WAIT_BINS = 7;
 
 enum ReqState { QUEUED = 0, CLAIMED = 1, DONE = 2, TIMEDOUT = 3 };
 
@@ -91,6 +94,7 @@ struct Req {
     uint32_t bucket = 0, out_bucket = 0;
     std::vector<uint32_t> row;  // bucket + 4 words
     Clock::time_point deadline;  // time_point::max() = no deadline
+    Clock::time_point queued;    // when it was queued for a pump
     // response (filled by complete/fail):
     int32_t status = 200;
     std::string err;                // non-empty => error response `name`
@@ -124,6 +128,13 @@ struct Server {
     std::atomic<int64_t> responded{0};  // search responses written
     std::atomic<int64_t> timeouts{0};   // SearchTimeout responses
     std::atomic<int64_t> errors{0};     // non-timeout error responses
+    // Claims by the pumps: batches claimed, and each claimed request's
+    // wait from queued to claimed (sum in ns, count, and a histogram of
+    // QUEUE_WAIT_BUCKETS_MS plus +Inf).
+    std::atomic<int64_t> batches{0};
+    std::atomic<int64_t> queue_wait_ns{0};
+    std::atomic<int64_t> queue_waits{0};
+    std::atomic<int64_t> queue_wait_hist[QUEUE_WAIT_BINS] = {};
     int64_t max_conns = 512;
 };
 
@@ -922,6 +933,7 @@ bool handle_request(Conn* c, const std::string& method, std::string path,
     {
         std::lock_guard<std::mutex> lk(srv->mu);
         req->seq = srv->next_seq++;
+        req->queued = Clock::now();
         srv->groups[req->gkey].q.push_back(req);
         srv->accepted.fetch_add(1);
         srv->pump_cv.notify_one();
@@ -1308,14 +1320,27 @@ int64_t aitpu_front_next(int64_t handle, uint8_t* name_buf, uint32_t* meta,
             meta[0] = bucket;
             meta[1] = dq.front()->out_bucket;
             meta[2] = static_cast<uint32_t>(std::min<size_t>(name_len, 255));
+            auto now = Clock::now();
+            int64_t wait_ns = 0;
+            int64_t hist[QUEUE_WAIT_BINS] = {};
             while (n < max_rows && !dq.empty()) {
                 Req* r = dq.front();
                 dq.pop_front();
                 r->state = CLAIMED;
                 memcpy(rows + n * words, r->row.data(), words * 4);
                 tokens[n] = reinterpret_cast<uint64_t>(r);
+                int64_t w = std::chrono::duration_cast<std::chrono::nanoseconds>(now - r->queued).count();
+                wait_ns += w;
+                int bin = 0;
+                while (bin < QUEUE_WAIT_BINS - 1 && w > QUEUE_WAIT_BUCKETS_MS[bin] * 1000000) bin++;
+                hist[bin]++;
                 n++;
             }
+            srv->batches.fetch_add(1, std::memory_order_relaxed);
+            srv->queue_wait_ns.fetch_add(wait_ns, std::memory_order_relaxed);
+            srv->queue_waits.fetch_add(n, std::memory_order_relaxed);
+            for (int b = 0; b < QUEUE_WAIT_BINS; b++)
+                if (hist[b]) srv->queue_wait_hist[b].fetch_add(hist[b], std::memory_order_relaxed);
             return n;
         }
         if (srv->pump_cv.wait_until(lk, deadline) == std::cv_status::timeout)
@@ -1362,9 +1387,12 @@ int64_t aitpu_front_fail(int64_t handle, const uint64_t* tokens, int64_t n,
 }
 
 // which: 0=accepted, 1=responded, 2=timeouts, 3=errors, 4=open conns,
-// 5=bound port (resolves port-0 binds).
+// 5=bound port (resolves port-0 binds), 6=batches claimed by the pumps,
+// 7=claimed requests' queue wait in ns (summed), 8=claimed requests,
+// 9..15=claimed requests by queue wait: <= 1, 5, 10, 50, 100, 500 ms, more.
 int64_t aitpu_front_stat(int64_t handle, int32_t which) {
     auto* srv = reinterpret_cast<Server*>(handle);
+    if (which >= 9 && which < 9 + QUEUE_WAIT_BINS) return srv->queue_wait_hist[which - 9].load();
     switch (which) {
         case 0: return srv->accepted.load();
         case 1: return srv->responded.load();
@@ -1372,6 +1400,9 @@ int64_t aitpu_front_stat(int64_t handle, int32_t which) {
         case 3: return srv->errors.load();
         case 4: return srv->conns.load();
         case 5: return srv->port;
+        case 6: return srv->batches.load();
+        case 7: return srv->queue_wait_ns.load();
+        case 8: return srv->queue_waits.load();
         default: return -1;
     }
 }

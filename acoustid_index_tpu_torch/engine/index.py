@@ -39,6 +39,7 @@ that is after nearly every batch of the stream.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -353,6 +354,17 @@ class Index:
 
     # ---- writer ----
 
+    @contextlib.contextmanager
+    def _update_locked(self):
+        """The write lock for update(), its wait and hold as spans."""
+        with trace("update.lock_wait"):
+            self._write_lock.acquire()
+        try:
+            with trace("update.lock_hold"):
+                yield
+        finally:
+            self._write_lock.release()
+
     def update(
         self,
         changes: Sequence[Change],
@@ -360,15 +372,19 @@ class Index:
         version: Optional[int] = None,
     ) -> int:
         """Apply a batch; returns the new version. The oplog append is the
-        commit point (Index.zig:515-587)."""
-        with self._write_lock:
+        commit point (Index.zig:515-587).  Spans: update.lock_wait and
+        update.lock_hold (the write lock), and inside the hold
+        update.memseg, update.oplog_append (WAL append + fsync) and
+        update.memory_insert (the new memory tier's device view)."""
+        with self._update_locked():
             # Once anything carries an upstream position, every later commit
             # needs one — a minted local version would advertise a watermark
             # the upstream never issued (Index.zig:525-534).
             if self.external_versions and version is None:
                 raise VersionRequired("index is upstream-fed; local writes are not allowed")
 
-            seg = build_segment(changes, SegmentInfo())  # info stamped post-commit
+            with trace("update.memseg"):
+                seg = build_segment(changes, SegmentInfo())  # info stamped post-commit
 
             cur = self.acquire_reader()
             if len(cur.memory) >= MEMORY_SLOTS and cur.mem_view is not PENDING_VIEW:
@@ -382,7 +398,8 @@ class Index:
                 self._merge_memory_locked(all_segments=True)
                 cur = self.acquire_reader()
 
-            commit_id, resolved = self.oplog.append(changes, expected_version=expected_version, version=version)
+            with trace("update.oplog_append"):
+                commit_id, resolved = self.oplog.append(changes, expected_version=expected_version, version=version)
             # `version`, not `resolved`: a local commit must stay unmarked or
             # the segment would look upstream-fed.
             from dataclasses import replace as _replace
@@ -404,20 +421,21 @@ class Index:
                 any(isinstance(c, BulkInsert) for c in changes)
                 or len(new_memory) > MEMORY_SLOTS
             )
-            snap = Snapshot(
-                file=cur.file,
-                memory=new_memory,
-                commit_id=commit_id,
-                file_commit_id=self.file_commit_id,
-                version=resolved,
-                file_version=self.file_version,
-                external_versions=self.external_versions,
-                file_view=cur.file_view,  # shared: the write never touches the big buffer
-                mem_view=PENDING_VIEW
-                if defer
-                else self.searcher.pack_mem_tier(new_memory, owner=self.path),
-            )
-            self._swap(snap)
+            with trace("update.memory_insert"):
+                snap = Snapshot(
+                    file=cur.file,
+                    memory=new_memory,
+                    commit_id=commit_id,
+                    file_commit_id=self.file_commit_id,
+                    version=resolved,
+                    file_version=self.file_version,
+                    external_versions=self.external_versions,
+                    file_view=cur.file_view,  # shared: the write never touches the big buffer
+                    mem_view=PENDING_VIEW
+                    if defer
+                    else self.searcher.pack_mem_tier(new_memory, owner=self.path),
+                )
+                self._swap(snap)
             self._wake.set()
             if self.on_commit:
                 self.on_commit(self)

@@ -5,8 +5,9 @@ Queries are sorted and de-duplicated up front (a duplicate query hash
 counts once, as in the reference's IndexReader.search) and padded to a
 query bucket.  The BatchingSearcher keeps the reference's pipeline: a
 dispatcher thread packs concurrent requests into one batch and launches it
-on a searcher-owned CUDA stream, inside a `search_dispatch[rows/batch]`
-profiler span (utils/profiling.trace); collector threads wait on each
+on a searcher-owned CUDA stream, inside the span `search_dispatch`
+(utils/profiling.trace; `search_dispatch[rows/batch]` on a capture's
+timeline); collector threads wait on each
 batch's event and hand rows back to the callers.
 
 What the port leaves out: the reference's background precompiler, its
@@ -506,7 +507,7 @@ class BatchingSearcher(Searcher):
             params = _params_for(key[2], key[3])
             b = _batch_size(len(batch))
             try:
-                with trace(f"search_dispatch[{len(batch)}/{b}]"):
+                with trace("search_dispatch", (len(batch), b)):
                     handle = self._launch(batch[0].snapshot, params, _pack_rows(params, [r.padded for r in batch], b))
             except Exception as exc:  # noqa: BLE001 -- propagated per-request
                 with self._qlock:

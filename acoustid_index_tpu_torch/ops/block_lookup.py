@@ -39,15 +39,17 @@ cast) and hands every K1/K2 call of that call the int32 copy.
 from __future__ import annotations
 
 import os
-import threading
 
 import torch
 
+from ..utils.profiling import bump, counters
 from .binsearch import upper_bound
 from .layout import BLOCK, resident_max_bytes, to_storage, u32
 
 ROWS = BLOCK // 128
-LAUNCHES = {
+# Launches by kernel, in the span and counter registry (utils/profiling) as
+# `launches.<kernel>`; several native-front pumps launch at once.
+LAUNCHES = counters("launches", {
     "block_count": 0,
     "block_count_masked": 0,
     "block_count_emit": 0,
@@ -57,8 +59,7 @@ LAUNCHES = {
     "block_count_pair": 0,
     "block_count_emit_docids": 0,
     "block_count_staged": 0,
-}
-_launches_lock = threading.Lock()  # several native-front pumps launch at once
+})
 
 # Test hook: when true, the wrappers of the searching kernels (K1, K2 here,
 # K3, K4 in probe_lookup.py) check on the CPU that every block they look
@@ -109,8 +110,7 @@ def _check_sorted(name, table, blk, stride, R: int = BLOCK):
 
 def _launched(rc: int, name: str) -> None:
     """Count one launch of kernel `name`, then raise if it was refused."""
-    with _launches_lock:
-        LAUNCHES[name] += 1
+    bump(LAUNCHES, name)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 

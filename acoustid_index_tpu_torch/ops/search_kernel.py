@@ -24,12 +24,12 @@ What changed in the port, and why:
 from __future__ import annotations
 
 import dataclasses
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..utils.profiling import bump, counters, trace
 from .binsearch import lower_bound, upper_bound
 from .block_lookup import (
     BLOCK,
@@ -49,14 +49,14 @@ F_DIRECT = 16  # fallback gather slots per query on the direct path
 P_MEM_DIRECT = 64  # memory-tier gather slots per query on the direct path
 
 # Per-process counts: which branch each batch took, and host syncs spent
-# on branch predicates.  Tests and chip_smoke.py read deltas.
-STATS = {"direct": 0, "matrix": 0, "sort": 0, "host_syncs": 0}
-_stats_lock = threading.Lock()  # the native front's pumps launch concurrently
+# on branch predicates.  Tests and chip_smoke.py read deltas.  They live in
+# the span and counter registry (utils/profiling) as `search.<key>`, whose
+# lock guards them: the native front's pumps launch concurrently.
+STATS = counters("search", {"direct": 0, "matrix": 0, "sort": 0, "host_syncs": 0})
 
 
 def _count(key: str) -> None:
-    with _stats_lock:
-        STATS[key] += 1
+    bump(STATS, key)
 
 
 @dataclass(frozen=True)
@@ -71,9 +71,11 @@ class SearchParams:
 
 
 def _host(*preds):
-    """Fetch device predicates in one transfer (one host sync)."""
+    """Fetch device predicates in one transfer (one host sync): the span
+    `program.sync` is the time the launching thread waits on the card."""
     _count("host_syncs")
-    return [bool(v) for v in torch.stack([torch.as_tensor(p) for p in preds]).tolist()]
+    with trace("program.sync"):
+        return [bool(v) for v in torch.stack([torch.as_tensor(p) for p in preds]).tolist()]
 
 
 def _tier_n_items(tier):
@@ -372,32 +374,37 @@ def _tier_blocks(lo, cnt):
 def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, limits, min_scores, pcts):
     """(B, Q) batch: one range phase for the whole batch, then the direct,
     matrix or sort branch, chosen on the host exactly as the reference's
-    lax.cond cascade chooses."""
+    lax.cond cascade chooses.  Each stage is a span of the registry
+    (utils/profiling): program.range, program.branch, program.gather,
+    program.rank, program.mention, program.select -- the host's time to
+    enqueue it, and the host syncs (program.sync) inside it."""
     B = queries.shape[0]
     want_emit = "inter" in file_tier and p.query_len <= 256
-    f_lo, f_cnt, m_lo, m_cnt, trunc, emit_info = _batch_ranges(
-        p, file_tier, mem_tier, queries, q_lens, want_emit=want_emit
-    )
+    with trace("program.range"):
+        f_lo, f_cnt, m_lo, m_cnt, trunc, emit_info = _batch_ranges(
+            p, file_tier, mem_tier, queries, q_lens, want_emit=want_emit
+        )
 
-    has_mem = m_cnt.sum() > 0
-    small_ok = p.postings_budget > P_SMALL and p.candidate_cap <= P_SMALL
-    small = torch.zeros((), dtype=torch.bool, device=queries.device)
-    if small_ok:
-        p_small, totals_rough = small_budget(p, f_cnt, m_cnt, B)
-        small = totals_rough.max() <= P_SMALL
-    direct_ok = torch.zeros((), dtype=torch.bool, device=queries.device)
-    if emit_info is not None:
-        rows, covered = emit_info
-        E_direct = 2 if p.query_len <= 128 else 1
-        ov_tot = torch.clamp(f_cnt - torch.where(covered, E_direct, 0), min=0).sum(1)
-        m_tot = m_cnt.sum(1)
-        direct_ok = (ov_tot.max() <= F_DIRECT) & (m_tot.max() <= P_MEM_DIRECT)
-    has_mem, small, direct_ok = _host(has_mem, small, direct_ok)
+    with trace("program.branch"):
+        has_mem = m_cnt.sum() > 0
+        small_ok = p.postings_budget > P_SMALL and p.candidate_cap <= P_SMALL
+        small = torch.zeros((), dtype=torch.bool, device=queries.device)
+        if small_ok:
+            p_small, totals_rough = small_budget(p, f_cnt, m_cnt, B)
+            small = totals_rough.max() <= P_SMALL
+        direct_ok = torch.zeros((), dtype=torch.bool, device=queries.device)
+        if emit_info is not None:
+            rows, covered = emit_info
+            E_direct = 2 if p.query_len <= 128 else 1
+            ov_tot = torch.clamp(f_cnt - torch.where(covered, E_direct, 0), min=0).sum(1)
+            m_tot = m_cnt.sum(1)
+            direct_ok = (ov_tot.max() <= F_DIRECT) & (m_tot.max() <= P_MEM_DIRECT)
+        has_mem, small, direct_ok = _host(has_mem, small, direct_ok)
 
-    # Per-query load-skew signals: max postings of one hash (both tiers)
-    # and max blocks one hash's run spans.
-    max_per_hash = (f_cnt + m_cnt).amax(1)
-    max_blocks_per_hash = (_tier_blocks(f_lo, f_cnt) + _tier_blocks(m_lo, m_cnt)).amax(1)
+        # Per-query load-skew signals: max postings of one hash (both tiers)
+        # and max blocks one hash's run spans.
+        max_per_hash = (f_cnt + m_cnt).amax(1)
+        max_blocks_per_hash = (_tier_blocks(f_lo, f_cnt) + _tier_blocks(m_lo, m_cnt)).amax(1)
 
     def finish(res, totals, tr):
         res["postings_scanned"] = totals
@@ -408,41 +415,53 @@ def _search_batch_impl(p: SearchParams, file_tier, mem_tier, queries, q_lens, li
 
     if direct_ok:
         _count("direct")
-        d_f, inv_f, totals_f = _direct_candidates(p, file_tier, rows, covered, f_lo, f_cnt, E_direct)
-        if has_mem:
-            # Mem-live batch: append the memory-tier postings (<= P_MEM_DIRECT).
-            p_mem = dataclasses.replace(p, postings_budget=P_MEM_DIRECT)
-            d_m, _o, inv_m, totals_m, _over = _plan_and_gather(
-                p_mem, file_tier, mem_tier, f_lo, torch.zeros_like(m_cnt), m_lo, m_cnt,
-                use_mem=True, use_file=False,
-            )
-            d = torch.cat([d_f, d_m], 1)
-            inv = torch.cat([inv_f, inv_m], 1)
-            o = torch.cat([torch.zeros_like(d_f), torch.full_like(d_m, TIER_MEM)], 1)
-            totals = totals_f + totals_m
-        else:
-            d, inv, o, totals = d_f, inv_f, torch.zeros_like(d_f), totals_f
-        win, score, cand = _score_matrix(p, d, o, inv, min_scores)
-        newest = _batch_newest(mem_tier, d.reshape(-1), cand.reshape(-1)).reshape(d.shape)
-        res = _final_select_matrix(p, d, score, win, cand, newest, limits, min_scores, pcts)
-        return finish(res, totals, trunc.expand(B))
+        with trace("program.gather"):
+            d_f, inv_f, totals_f = _direct_candidates(p, file_tier, rows, covered, f_lo, f_cnt, E_direct)
+            if has_mem:
+                # Mem-live batch: append the memory-tier postings (<= P_MEM_DIRECT).
+                p_mem = dataclasses.replace(p, postings_budget=P_MEM_DIRECT)
+                d_m, _o, inv_m, totals_m, _over = _plan_and_gather(
+                    p_mem, file_tier, mem_tier, f_lo, torch.zeros_like(m_cnt), m_lo, m_cnt,
+                    use_mem=True, use_file=False,
+                )
+                d = torch.cat([d_f, d_m], 1)
+                inv = torch.cat([inv_f, inv_m], 1)
+                o = torch.cat([torch.zeros_like(d_f), torch.full_like(d_m, TIER_MEM)], 1)
+                totals = totals_f + totals_m
+            else:
+                d, inv, o, totals = d_f, inv_f, torch.zeros_like(d_f), totals_f
+        with trace("program.rank"):
+            win, score, cand = _score_matrix(p, d, o, inv, min_scores)
+        with trace("program.mention"):
+            newest = _batch_newest(mem_tier, d.reshape(-1), cand.reshape(-1)).reshape(d.shape)
+        with trace("program.select"):
+            res = _final_select_matrix(p, d, score, win, cand, newest, limits, min_scores, pcts)
+            return finish(res, totals, trunc.expand(B))
 
     if small_ok and small:
         _count("matrix")
-        d, o, inv, totals, overs = _plan_and_gather(
-            p_small, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem
-        )
-        win, score, cand = _score_matrix(p_small, d, o, inv, min_scores)
-        newest = _batch_newest(mem_tier, d.reshape(-1), cand.reshape(-1)).reshape(d.shape)
-        res = _final_select_matrix(p, d, score, win, cand, newest, limits, min_scores, pcts)
-        return finish(res, totals, trunc | overs)
+        with trace("program.gather"):
+            d, o, inv, totals, overs = _plan_and_gather(
+                p_small, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem
+            )
+        with trace("program.rank"):
+            win, score, cand = _score_matrix(p_small, d, o, inv, min_scores)
+        with trace("program.mention"):
+            newest = _batch_newest(mem_tier, d.reshape(-1), cand.reshape(-1)).reshape(d.shape)
+        with trace("program.select"):
+            res = _final_select_matrix(p, d, score, win, cand, newest, limits, min_scores, pcts)
+            return finish(res, totals, trunc | overs)
 
     _count("sort")
-    d, o, inv, totals, overs = _plan_and_gather(p, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem)
-    cd, co, csc, c_valid, c_over = _score_rank(p, d, o, inv, min_scores)
-    newest = _batch_newest(mem_tier, cd.reshape(-1), c_valid.reshape(-1)).reshape(cd.shape)
-    res = _final_select(p, cd, co, csc, c_valid, newest, limits, min_scores, pcts)
-    return finish(res, totals, trunc | overs | c_over)
+    with trace("program.gather"):
+        d, o, inv, totals, overs = _plan_and_gather(p, file_tier, mem_tier, f_lo, f_cnt, m_lo, m_cnt, use_mem=has_mem)
+    with trace("program.rank"):
+        cd, co, csc, c_valid, c_over = _score_rank(p, d, o, inv, min_scores)
+    with trace("program.mention"):
+        newest = _batch_newest(mem_tier, cd.reshape(-1), c_valid.reshape(-1)).reshape(cd.shape)
+    with trace("program.select"):
+        res = _final_select(p, cd, co, csc, c_valid, newest, limits, min_scores, pcts)
+        return finish(res, totals, trunc | overs | c_over)
 
 
 def _tier_device(tier) -> torch.device:

@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -78,6 +77,7 @@ from ..ops.search_kernel import (
     small_budget,
 )
 from ..ops.search_kernel import _count as _count_single
+from ..utils.profiling import bump, counters
 
 MATRIX_MAX = 1024  # widest joined stream scored sort-free (the reference's)
 
@@ -86,15 +86,15 @@ MATRIX_MAX = 1024  # widest joined stream scored sort-free (the reference's)
 # gather) and the scorer of the joined stream (equality matrix up to
 # MATRIX_MAX wide, else the sort).  Host syncs count in
 # ops/search_kernel.STATS["host_syncs"].
-STATS = {"batches": 0, "direct_wide": 0, "direct_narrow": 0, "small": 0, "full": 0,
-         "select_matrix": 0, "select_sorted": 0}
-_stats_lock = threading.Lock()
+# They live in the span and counter registry (utils/profiling) as
+# `sharded.<key>`.
+STATS = counters("sharded", {"batches": 0, "direct_wide": 0, "direct_narrow": 0, "small": 0, "full": 0,
+                             "select_matrix": 0, "select_sorted": 0})
 
 
 def _count(*keys: str) -> None:
-    with _stats_lock:
-        for k in keys:
-            STATS[k] += 1
+    for k in keys:
+        bump(STATS, k)
 
 
 @dataclass(frozen=True)

@@ -21,6 +21,7 @@ from ..engine import errors
 from ..engine.model import Delete, Insert
 from ..multi import snapshot as snapshot_wire
 from ..multi.multi_index import MultiIndex, SearchRequestParams
+from ..utils.profiling import trace
 from . import api
 from .http import Request, Response, Router
 
@@ -173,7 +174,8 @@ class App:
         return self._respond(req, api.encode_search_response(results, ct == MSGPACK))
 
     def handle_update(self, req: Request) -> Response:
-        d = self._require_body(req, api.decode_update_request)
+        with trace("update.decode"):
+            d = self._require_body(req, api.decode_update_request)
         version = self.mi.update(
             req.params["index"],
             d["changes"],

@@ -9,7 +9,13 @@ are removed when it is deleted.
 
 The port's copy of acoustid_index_tpu/server/metrics.py: the same code, its relative
 imports resolving to the port's own modules, plus the merge counters by
-route (inc_merges: aitpu_merges_{device,host,fallback}_total).
+route (inc_merges: aitpu_merges_{device,host,fallback}_total), and, after
+every series above, the span and counter registry (utils/profiling):
+aitpu_span_seconds_total / aitpu_span_count_total{span=...} (and
+aitpu_span_cpu_seconds_total for spans that total the thread's CPU time),
+aitpu_program_counter_total{counter=...}, and the native front's claim
+counters, aitpu_front_batches_total and the aitpu_front_queue_wait_seconds
+histogram.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from __future__ import annotations
 import threading
 from collections import defaultdict
 from typing import Dict, List, Tuple
+
+from ..utils import profiling
 
 _lock = threading.Lock()
 
@@ -30,6 +38,9 @@ PER_HASH_BUCKETS = (1, 5, 10, 50, 100, 500, 1000, 5000)
 # 1,2,3,5,10 — metrics.zig:10; its per-hash cap is 4 blocks, ours is a
 # 2-block landing window, so the same range covers both).
 BLOCKS_BUCKETS = (1, 2, 3, 5, 10)
+# The native front's queue-wait histogram (csrc/aitpu_front.cc
+# QUEUE_WAIT_BUCKETS_MS), in seconds; its last bin is +Inf.
+FRONT_QUEUE_WAIT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5)
 
 
 class _Hist:
@@ -266,4 +277,35 @@ def render() -> str:
         out.append(f'{PREFIX}_scanned_blocks_per_hash_bucket{{le="+Inf"}} {_blocks_per_hash.total}')
         out.append(f"{PREFIX}_scanned_blocks_per_hash_sum {_blocks_per_hash.sum:g}")
         out.append(f"{PREFIX}_scanned_blocks_per_hash_count {_blocks_per_hash.total}")
+    _render_registry(out)
     return "\n".join(out) + "\n"
+
+
+def _render_registry(out: List[str]) -> None:
+    t = profiling.totals()
+    spans = sorted(t["spans"].items())
+    if spans:
+        out.append(f"# TYPE {PREFIX}_span_seconds_total counter")
+        out += [f'{PREFIX}_span_seconds_total{{span="{k}"}} {v[0] / 1e9:.9g}' for k, v in spans]
+        out.append(f"# TYPE {PREFIX}_span_count_total counter")
+        out += [f'{PREFIX}_span_count_total{{span="{k}"}} {v[1]}' for k, v in spans]
+        cpu = [(k, v) for k, v in spans if v[2]]
+        if cpu:
+            out.append(f"# TYPE {PREFIX}_span_cpu_seconds_total counter")
+            out += [f'{PREFIX}_span_cpu_seconds_total{{span="{k}"}} {v[2] / 1e9:.9g}' for k, v in cpu]
+    c = t["counters"]
+    program = sorted((k, v) for k, v in c.items() if not k.startswith("front."))
+    if program:
+        out.append(f"# TYPE {PREFIX}_program_counter_total counter")
+        out += [f'{PREFIX}_program_counter_total{{counter="{k}"}} {v}' for k, v in program]
+    if "front.batches" in c:
+        out.append(f"# TYPE {PREFIX}_front_batches_total counter")
+        out.append(f"{PREFIX}_front_batches_total {c['front.batches']}")
+        out.append(f"# TYPE {PREFIX}_front_queue_wait_seconds histogram")
+        cum = 0
+        for i, b in enumerate(FRONT_QUEUE_WAIT_BUCKETS):
+            cum += c.get(f"front.queue_wait_bin.{i}", 0)
+            out.append(f'{PREFIX}_front_queue_wait_seconds_bucket{{le="{b:g}"}} {cum}')
+        out.append(f'{PREFIX}_front_queue_wait_seconds_bucket{{le="+Inf"}} {c["front.queue_waits"]}')
+        out.append(f"{PREFIX}_front_queue_wait_seconds_sum {c['front.queue_wait_ns'] / 1e9:.9g}")
+        out.append(f"{PREFIX}_front_queue_wait_seconds_count {c['front.queue_waits']}")

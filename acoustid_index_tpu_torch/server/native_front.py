@@ -13,6 +13,15 @@ in-flight transfers exactly like the Python dispatcher/collector split
 Python's per-REQUEST serving cost is zero; its per-BATCH cost is two ctypes
 calls plus the searcher's launch.
 
+Spans of the registry (utils/profiling), fixed names, per batch: the pump's
+`pump.claim` (aitpu_front_next), `pump.batch` (from the claim's return to
+the last chunk enqueued, with the thread's CPU time) and inside it
+`pump.pack`, `pump.inflight_wait`, `pump.launch`, `pump.enqueue`; the
+collectors' `collect.fetch` (the wait on the batch's event) and
+`collect.complete` (serving histograms + aitpu_front_complete).  The C++
+front's claim counters (batches, each claimed request's queue wait) are a
+source of the registry's counters as `front.*`.
+
 The port's copy of acoustid_index_tpu/server/native_front.py.  It differs
 where the reference met JAX: no thread imports jax, the collectors fetch
 through Searcher._fetch (a pinned host copy behind a CUDA event) in place of
@@ -47,13 +56,21 @@ import numpy as np
 
 from ..engine import errors
 from ..engine.searcher import MAX_BATCH, _params_for
+from ..utils import profiling
 from ..utils.native import front_lib
+from ..utils.profiling import cpu_span, trace
 from . import metrics
 
 log = logging.getLogger("acoustid_index_tpu_torch.native_front")
 
 ROW_WORDS_MAX = 4096 + 4  # largest query bucket + (len, limit, min_score, pct)
 OUT_WORDS_MAX = 2 * 512 + 5  # largest out bucket, packed output row
+
+# aitpu_front_stat indexes of the claim counters (csrc/aitpu_front.cc), by
+# the registry's counter names; the queue-wait histogram's bins follow
+# (metrics.FRONT_QUEUE_WAIT_BUCKETS and +Inf).
+FRONT_STATS = {"front.batches": 6, "front.queue_wait_ns": 7, "front.queue_waits": 8}
+FRONT_QUEUE_WAIT_BIN0 = 9
 
 
 class NativeFront:
@@ -92,6 +109,13 @@ class NativeFront:
             raise RuntimeError(f"native front failed to bind port {self.port}")
         self.handle = h
         self.port = int(self.lib.aitpu_front_stat(h, 5))  # resolves port 0
+        # aitpu_front_stat is an atomic load: through PyDLL it keeps the
+        # interpreter lock, so reading the claim counters at a snapshot
+        # hands the lock to no other thread.
+        self._stat = ctypes.PyDLL(self.lib._name).aitpu_front_stat
+        self._stat.restype, self._stat.argtypes = ctypes.c_int64, [ctypes.c_int64, ctypes.c_int32]
+        self._source = f"front-{id(self)}"
+        profiling.add_source(self._source, self.claim_counters)
         for i in range(self.collectors):
             t = threading.Thread(
                 target=self._collect_loop, name=f"aitpu-pump-collect-{i}", daemon=True
@@ -121,10 +145,22 @@ class NativeFront:
             self._cq.put(None)
         for t in self._collect_threads:
             t.join(timeout=30)
+        if self.handle is not None:
+            profiling.remove_source(self._source)
         self.handle = None
 
     def stat(self, which: int) -> int:
         return int(self.lib.aitpu_front_stat(self.handle, which))
+
+    def claim_counters(self) -> dict:
+        """The C++ front's claim counters by the registry's names: batches
+        claimed, the claimed requests' queue wait (ns summed, count) and
+        its histogram (`front.queue_wait_bin.<i>`, per bin)."""
+        stat, h = self._stat, self.handle
+        out = {k: int(stat(h, i)) for k, i in FRONT_STATS.items()}
+        for b in range(len(metrics.FRONT_QUEUE_WAIT_BUCKETS) + 1):
+            out[f"front.queue_wait_bin.{b}"] = int(stat(h, FRONT_QUEUE_WAIT_BIN0 + b))
+        return out
 
     # ---- pump ----
 
@@ -139,26 +175,28 @@ class NativeFront:
         tokens_p = tokens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
 
         while not self._stopping:
-            n = int(
-                self.lib.aitpu_front_next(
-                    self.handle, name_buf, meta_p, rows_p, tokens_p, MAX_BATCH, 200
+            with trace("pump.claim"):
+                n = int(
+                    self.lib.aitpu_front_next(
+                        self.handle, name_buf, meta_p, rows_p, tokens_p, MAX_BATCH, 200
+                    )
                 )
-            )
             if n <= 0:
                 if n < 0:
                     return  # stopping
                 continue
-            bucket = int(meta[0])
-            out_bucket = int(meta[1])
-            name = bytes(name_buf[: int(meta[2])]).decode("utf-8", "replace")
-            batch_rows = rows[: n * (bucket + 4)].reshape(n, bucket + 4)
-            try:
-                self._launch_group(name, bucket, out_bucket, batch_rows, tokens[:n])
-            except errors.IndexError_ as exc:
-                self._fail(tokens[:n], exc.status, exc.name)
-            except Exception as exc:  # noqa: BLE001 — per-batch isolation
-                log.exception("native pump batch failed", exc_info=exc)
-                self._fail(tokens[:n], 500, "InternalError")
+            with cpu_span("pump.batch"):
+                bucket = int(meta[0])
+                out_bucket = int(meta[1])
+                name = bytes(name_buf[: int(meta[2])]).decode("utf-8", "replace")
+                batch_rows = rows[: n * (bucket + 4)].reshape(n, bucket + 4)
+                try:
+                    self._launch_group(name, bucket, out_bucket, batch_rows, tokens[:n])
+                except errors.IndexError_ as exc:
+                    self._fail(tokens[:n], exc.status, exc.name)
+                except Exception as exc:  # noqa: BLE001 — per-batch isolation
+                    log.exception("native pump batch failed", exc_info=exc)
+                    self._fail(tokens[:n], 500, "InternalError")
 
     def _fail(self, tokens: np.ndarray, status: int, name: str) -> None:
         self.lib.aitpu_front_fail(
@@ -210,24 +248,28 @@ class NativeFront:
                 # claimed token is returned through complete() or fail()
                 # exactly once).
                 try:
-                    chunk = batch_rows[done:]
-                    b = searcher._pick_batch_size(chunk.shape[0])
-                    m = min(chunk.shape[0], b)
-                    packed = searcher._pack_rows(params, chunk[:m], b)
-                    self._inflight.acquire()
+                    with trace("pump.pack"):
+                        chunk = batch_rows[done:]
+                        b = searcher._pick_batch_size(chunk.shape[0])
+                        m = min(chunk.shape[0], b)
+                        packed = searcher._pack_rows(params, chunk[:m], b)
+                    with trace("pump.inflight_wait"):
+                        self._inflight.acquire()
                     # The inflight permit transfers to the collector only
                     # when the handle is ENQUEUED; a failure anywhere in
                     # between (launch, even cq.put) must release it here or
                     # the budget shrinks permanently.
                     enqueued = False
                     try:
-                        handle = searcher._launch(snapshot, params, packed)
+                        with trace("pump.launch"):
+                            handle = searcher._launch(snapshot, params, packed)
                         # tokens is a reused per-pump buffer: copy the
                         # slice, the next claim overwrites it while the
                         # collector still needs these values.
-                        self._cq.put(
-                            (name, searcher, handle, tokens[done : done + m].copy(), out_words, time.monotonic())
-                        )
+                        with trace("pump.enqueue"):
+                            self._cq.put(
+                                (name, searcher, handle, tokens[done : done + m].copy(), out_words, time.monotonic())
+                            )
                         enqueued = True
                     finally:
                         if not enqueued:
@@ -253,14 +295,16 @@ class NativeFront:
                 return
             name, searcher, handle, toks, out_words, t_launch = item
             try:
-                out = searcher._fetch(handle)[: len(toks)]
-                self._complete(name, toks, out, out_words)
-                # Every request in the batch experienced the full
-                # launch-to-fetch wall time (C++-side queueing excluded);
-                # dividing by batch size would understate latency ~250x.
-                metrics.observe_search_seconds(
-                    name, time.monotonic() - t_launch, n=len(toks)
-                )
+                with trace("collect.fetch"):
+                    out = searcher._fetch(handle)[: len(toks)]
+                with trace("collect.complete"):
+                    self._complete(name, toks, out, out_words)
+                    # Every request in the batch experienced the full
+                    # launch-to-fetch wall time (C++-side queueing excluded);
+                    # dividing by batch size would understate latency ~250x.
+                    metrics.observe_search_seconds(
+                        name, time.monotonic() - t_launch, n=len(toks)
+                    )
             except Exception as exc:  # noqa: BLE001 — per-batch isolation
                 log.exception("native collect batch failed", exc_info=exc)
                 self._fail(toks, 500, "InternalError")
