@@ -24,7 +24,9 @@ Layout (both):
     u32 footer = crc32(header bytes)  (written last: presence = complete file)
 
 Writes are atomic: temp file + fsync + rename, like the reference
-(filefmt.zig:183-203). Reads verify magic, counts and checksums.
+(filefmt.zig:183-203). Reads verify magic, counts and checksums.  On a card,
+Index.open reads with engine/card_tier.read_segment_card instead: the same
+checks (parse_header here), its varints decoded on the card.
 
 The port's copy of acoustid_index_tpu/engine/filefmt.py: the same code, its relative
 imports resolving to the port's own modules.
@@ -114,10 +116,10 @@ def write_segment(dir_path: str, segment: Segment) -> str:
     return name
 
 
-def read_segment(dir_path: str, info: SegmentInfo) -> Segment:
-    path = os.path.join(dir_path, segment_file_name(info))
-    with open(path, "rb") as f:
-        data = f.read()
+def parse_header(data: bytes, path: str, info: SegmentInfo):
+    """(magic, header, file info, header bytes, payload start, payload end)
+    of the segment file whose leading bytes are `data` (at least its magic,
+    length word and header), with its magic and identity checked."""
     magic = data[:4]
     if magic not in (MAGIC_RAW, MAGIC_DV):
         raise ValueError(f"bad segment magic in {path}")
@@ -132,14 +134,20 @@ def read_segment(dir_path: str, info: SegmentInfo) -> Segment:
     n = hdr["num_items"]
     m = hdr["num_docs"]
     pos = header_start + header_len
-
     if magic == MAGIC_DV:
-        pb = hdr["postings_bytes"]
-        db = hdr["docs_bytes"]
-        ab = (m + 7) // 8
-        end = pos + pb + db + ab
+        end = pos + hdr["postings_bytes"] + hdr["docs_bytes"] + (m + 7) // 8
     else:
         end = pos + 4 * n + 4 * n + 4 * m + m
+    return magic, hdr, file_info, header_bytes, pos, end
+
+
+def read_segment(dir_path: str, info: SegmentInfo) -> Segment:
+    path = os.path.join(dir_path, segment_file_name(info))
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, hdr, file_info, header_bytes, pos, end = parse_header(data, path, info)
+    n = hdr["num_items"]
+    m = hdr["num_docs"]
 
     payload = data[pos:end]
     if len(payload) != end - pos:
@@ -151,6 +159,8 @@ def read_segment(dir_path: str, info: SegmentInfo) -> Segment:
         raise ValueError(f"segment footer checksum mismatch in {path}")
 
     if magic == MAGIC_DV:
+        pb = hdr["postings_bytes"]
+        db = hdr["docs_bytes"]
         hashes, docids = native.decode_postings(payload[:pb], n)
         docs_ids = native.decode_sorted_u32(payload[pb : pb + db], m)
         docs_alive = _unpack_alive(payload[pb + db :], m)

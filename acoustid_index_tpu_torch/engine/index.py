@@ -31,7 +31,9 @@ the device, small ones on the host, and the index counts both routes and
 any fallback from device to host in `merge_counts` (the metrics count
 them too, the fold of a long WAL tail at open included).  A checkpoint's merge,
 file write and tier pack are profiler spans (utils/profiling.trace), as are
-an open's file reads, WAL replay and tier packs.  The
+an open's file reads, WAL replay and tier packs.  When the searcher's
+device is a card, an open streams its file segments' bytes to the card and
+builds the file tier there (engine/card_tier.py).  The
 maintenance thread packs a bulk stream's deferred memory tier only after
 IDLE_RESOLVE_S without a write; the reference packs it after every pass,
 that is after nearly every batch of the stream.
@@ -47,9 +49,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from . import filefmt, manifest
+from . import card_tier, filefmt, manifest
 from ..server import metrics
-from ..utils.profiling import trace
+from ..utils.profiling import bump, trace
 from .device_merge import MergeCounts, merge_segments_auto
 from .errors import SearchTimeout, VersionRequired
 from .memseg import Segment, build_segment
@@ -151,18 +153,28 @@ class Index:
         # every index the manager opens so --load-concurrency N bounds the
         # TOTAL concurrent loads (the reference's single semaphore,
         # MultiIndex.zig:201-223) — not N per index.
+        # On a card the segments' postings go there as the files hold them,
+        # and the file tier is built there from them (card_tier).
+        searcher = searcher or default_searcher()
+        on_card = card_tier.on_card(searcher.device)
         infos = manifest.read_manifest(data_dir)
         if infos:
 
+            def read(info):
+                if on_card:
+                    return card_tier.read_segment_card(data_dir, info, searcher.device)
+                return filefmt.read_segment(data_dir, info)
+
             def load(info):
                 if load_semaphore is None:
-                    return filefmt.read_segment(data_dir, info)
+                    return read(info)
                 with load_semaphore:
-                    return filefmt.read_segment(data_dir, info)
+                    return read(info)
 
             workers = load_concurrency or min(8, len(infos))
             with trace("open.read"), ThreadPoolExecutor(max_workers=workers) as pool:
                 file_segments = list(pool.map(load, infos))
+            bump(card_tier.OPEN, "card_segments" if on_card else "host_segments", len(file_segments))
         else:
             file_segments = []
 
@@ -208,7 +220,6 @@ class Index:
         oplog.last_commit_id = commit_id
         oplog.last_version = version
 
-        searcher = searcher or default_searcher()
         with trace("open.pack"):
             file_view = searcher.pack_file_tier(file_segments, owner=path)
             mem_view = searcher.pack_mem_tier(memory_segments, owner=path)

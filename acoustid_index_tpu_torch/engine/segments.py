@@ -83,10 +83,19 @@ def build_mention_table(segments: "Sequence[Segment]"):
     hit at ordinal o iff its newest mention ordinal exceeds o."""
     if not segments:
         return np.empty(0, np.uint32), np.empty(0, np.int32)
-    ids = np.concatenate([s.docs_ids for s in segments])
-    ords = np.concatenate(
-        [np.full(s.num_docs, k, np.int32) for k, s in enumerate(segments)]
-    )
+    if len(segments) == 1:
+        ids = np.ascontiguousarray(segments[0].docs_ids)
+        ords = np.zeros(ids.shape[0], np.int32)
+    else:
+        ids = np.concatenate([s.docs_ids for s in segments])
+        ords = np.concatenate(
+            [np.full(s.num_docs, k, np.int32) for k, s in enumerate(segments)]
+        )
+    if ids.shape[0] < 2 or bool((ids[1:] > ids[:-1]).all()):
+        # Sorted and unique already (one segment's docs, or segments over
+        # ascending disjoint ranges): the sort below would be the identity
+        # and every row its id's last.  At 2^27 docs this saves ~4 s.
+        return ids, ords
     order = np.argsort(ids, kind="stable")  # stable: ords ascend within ties
     ids = ids[order]
     ords = ords[order]
@@ -141,6 +150,59 @@ def _pack_runs(arrays: Sequence[np.ndarray], cap: int, fill) -> np.ndarray:
 _DEVICE_FIELDS = ("hashes", "docids", "inter", "block_index", "seg_start", "seg_len")
 
 
+def tier_frame(
+    segments: Sequence[Segment],
+    live_lens: Sequence[int],
+    slots: int,
+    min_cap: int = 1024,
+    min_slots: int = 0,
+    min_caps: Optional[Tuple[int, int, int]] = None,
+    mention_table: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Tuple[Dict, int]:
+    """pack_tier_np's fields other than the postings, as numpy, for
+    segments that keep `live_lens` postings each after the supersession
+    filter; and the postings capacity.  `mention_table` is the segments'
+    build_mention_table, where the caller has it already."""
+    if len(segments) > slots:
+        raise ValueError(f"too many segments for tier: {len(segments)} > {slots}")
+    slots = slot_bucket(max(len(segments), min(min_slots, slots)), slots)
+    cmin, dmin, mmin = min_caps or (min_cap, min_cap, min_cap)
+
+    mention_ids, _mention_ord = mention_table or build_mention_table(segments)
+
+    seg_len = np.zeros(slots, dtype=np.int32)
+    seg_start = np.zeros(slots, dtype=np.int32)
+    docs_len = np.zeros(slots, dtype=np.int32)
+    docs_start = np.zeros(slots, dtype=np.int32)
+    pos = dpos = 0
+    for k, s in enumerate(segments):
+        seg_start[k] = pos
+        seg_len[k] = live_lens[k]
+        pos += seg_len[k]
+        docs_start[k] = dpos
+        docs_len[k] = s.num_docs
+        dpos += s.num_docs
+
+    cap = _bucket(max(-(-pos // BLOCK) * BLOCK, 1), max(cmin, BLOCK))
+    dcap = _bucket(max(dpos, 1), dmin)
+
+    mcap = _bucket(max(mention_ids.shape[0], 1), mmin)
+    m_ids = np.full(mcap, SENTINEL32, np.uint32)
+    m_ids[: mention_ids.shape[0]] = mention_ids
+
+    frame = {
+        "seg_start": seg_start,
+        "seg_len": seg_len,
+        "docs_ids": _pack_runs([s.docs_ids for s in segments], dcap, SENTINEL32),
+        "docs_alive": _pack_runs([s.docs_alive.astype(np.int32) for s in segments], dcap, np.int32(0)),
+        "docs_start": docs_start,
+        "docs_len": docs_len,
+        "mention_ids": m_ids,
+        "mention_len": np.int32(mention_ids.shape[0]),
+    }
+    return frame, cap
+
+
 def pack_tier_np(
     segments: Sequence[Segment],
     slots: int,
@@ -150,29 +212,8 @@ def pack_tier_np(
 ) -> Dict:
     """The reference's pack_tier up to its upload: every field as numpy
     (u32 tables as np.uint32), mention_len as np.int32."""
-    if len(segments) > slots:
-        raise ValueError(f"too many segments for tier: {len(segments)} > {slots}")
-    slots = slot_bucket(max(len(segments), min(min_slots, slots)), slots)
-    cmin, dmin, mmin = min_caps or (min_cap, min_cap, min_cap)
-
-    mention_ids, _mention_ord = build_mention_table(segments)
     live_items = filter_superseded(segments)
-
-    seg_len = np.zeros(slots, dtype=np.int32)
-    seg_start = np.zeros(slots, dtype=np.int32)
-    docs_len = np.zeros(slots, dtype=np.int32)
-    docs_start = np.zeros(slots, dtype=np.int32)
-    pos = dpos = 0
-    for k, s in enumerate(segments):
-        seg_start[k] = pos
-        seg_len[k] = live_items[k][0].shape[0]
-        pos += seg_len[k]
-        docs_start[k] = dpos
-        docs_len[k] = s.num_docs
-        dpos += s.num_docs
-
-    cap = _bucket(max(-(-pos // BLOCK) * BLOCK, 1), max(cmin, BLOCK))
-    dcap = _bucket(max(dpos, 1), dmin)
+    frame, cap = tier_frame(segments, [h.shape[0] for h, _ in live_items], slots, min_cap, min_slots, min_caps)
 
     hashes = np.full(cap, SENTINEL32, dtype=np.uint32)
     docids = np.full(cap, SENTINEL32, dtype=np.uint32)
@@ -184,23 +225,8 @@ def pack_tier_np(
             all_h, all_d = all_h[order], all_d[order]
         hashes[: all_h.shape[0]] = all_h
         docids[: all_d.shape[0]] = all_d
-    block_index = np.ascontiguousarray(hashes[::BLOCK])
 
-    mcap = _bucket(max(mention_ids.shape[0], 1), mmin)
-    m_ids = np.full(mcap, SENTINEL32, np.uint32)
-    m_ids[: mention_ids.shape[0]] = mention_ids
-
-    out = {
-        "block_index": block_index,
-        "seg_start": seg_start,
-        "seg_len": seg_len,
-        "docs_ids": _pack_runs([s.docs_ids for s in segments], dcap, SENTINEL32),
-        "docs_alive": _pack_runs([s.docs_alive.astype(np.int32) for s in segments], dcap, np.int32(0)),
-        "docs_start": docs_start,
-        "docs_len": docs_len,
-        "mention_ids": m_ids,
-        "mention_len": np.int32(mention_ids.shape[0]),
-    }
+    out = {"block_index": np.ascontiguousarray(hashes[::BLOCK]), **frame}
     if use_interleaved(cap, resident_max_bytes()):
         out["inter"] = interleave_np(hashes, docids)
     else:
@@ -250,14 +276,21 @@ def pack_tier(
     device=None,
 ) -> Dict:
     """Pack segments (oldest -> newest) into one padded tier on `device`
-    (default: utils.device.device())."""
+    (default: utils.device.device()): on the device from the segments' file
+    bytes when every one is a card_tier.CardSegment that still holds them
+    there (a restart's file tier), else with pack_tier_np and an upload."""
     if device is None:
         from ..utils.device import device as default_device
 
         device = default_device()
-    tier = pack_tier_np(segments, slots, min_cap, min_slots, min_caps)
-    with trace("tier.upload"):
-        view = tier_from_numpy(tier, device, mentions=device_mentions)
+    from . import card_tier
+
+    if card_tier.packs_on_card(segments, device):
+        view = card_tier.pack_tier_card(segments, slots, min_cap, min_slots, min_caps, mentions=device_mentions)
+    else:
+        tier = pack_tier_np(segments, slots, min_cap, min_slots, min_caps)
+        with trace("tier.upload"):
+            view = tier_from_numpy(tier, device, mentions=device_mentions)
     view["view_token"] = next(_VIEW_TOKENS)
     return view
 

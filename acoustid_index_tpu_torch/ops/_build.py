@@ -7,12 +7,13 @@ stale build.  No PyTorch headers are involved, so a build takes seconds.
 Nothing here runs at import time: the CPU test suite imports every module
 of the port on a machine with no nvcc and no card.
 
-Three libraries: "kernels" (csrc/block_lookup.cu), the kernels the port
+Four libraries: "kernels" (csrc/block_lookup.cu), the kernels the port
 runs; "designs" (csrc/block_lookup_designs.cu and
 csrc/probe_lookup_designs.cu), the search designs that K1-K4 did not take,
 which only measure.py loads to time them; "probes" (csrc/probe_lookup.cu),
 K3-K5, the kernels of the probes' contracts that K1 and K2 do not compute
-(ops/probe_lookup.py).  The headers of csrc/ (csrc/sector_search.cuh,
+(ops/probe_lookup.py); "varint" (csrc/varint_decode.cu), the decode of a
+segment file's delta-varints at restart (ops/varint.py).  The headers of csrc/ (csrc/sector_search.cuh,
 included by both K3/K4 sources) enter every library's hash.
 """
 
@@ -66,6 +67,14 @@ LIBRARIES = {
         "aitpu_block_count_pair": _PAIR,
         "aitpu_block_count_emit_docids": _EMIT_DOCIDS,
         "aitpu_block_count_staged": _STAGED,
+    }),
+    "varint": (("varint_decode.cu",), {
+        "aitpu_varint_count": [_P, _LL, _P, _P, _P],
+        "aitpu_varint_decode": [_P, _LL, _P, _I, _P, _P, _LL, _LL, _P],
+        "aitpu_varint_scan": [_P, _P, _LL, _LL, _LL, _I, _P, _P, _P],
+        "aitpu_varint_sums": [_P, _P, _LL, _LL, _I, _P, _P],
+        "aitpu_varint_carries": [_LL, _P, _P],
+        "aitpu_varint_apply": [_P, _P, _LL, _LL, _LL, _I, _P, _P, _P],
     }),
 }
 

@@ -166,15 +166,27 @@ Phases, each fatal on failure:
      the load fails it with the amount it needs); then the server is
      stopped and started again on its directory, timed to its first
      answered _search, and must serve the file tier interleaved on the card
-     with 2^31 entries.  With every launch counter at 0: two batches of 256
-     (6 of a target's 8 hashes + 4 random) and the boundary batch through
+     with 2^31 entries.  The restart builds that tier on the card
+     (engine/card_tier.py): its counters must read one card segment, no host
+     segment and no copy-back, and csrc/varint_decode.cu's five kernels
+     (count, decode, sums, carries, apply) two launches each.  Then
+     (varint_at_scale) the served tier and its top index, and the segment's
+     lazy columns, must equal the host decoder's 2^30 postings
+     (filefmt.read_segment); the segment's stream, read onto the card again,
+     must give them through varint.decode_columns and, into a fresh
+     interleaved tier, the served tier's bytes through varint.decode; the
+     kernels must equal the plain version on the stream's first 2^22 pairs;
+     each kernel's device time at the restart's launches is timed by CUDA
+     events around it alone, beside the bytes it needs.  With every launch
+     counter at 0: two batches of 256 (6 of a target's 8 hashes + 4
+     random) and the boundary batch through
      the Python server, every answer equal to tests/oracle.py over the
      analytic corpus (bench_100m.OracleCorpus) with self-retrieval 1.0, and
      through the native front, every body byte-equal; then phase 2's write
      mix (1,000 new docs above 2^27, 5 rewrites, 5 deletes) read back and
      searched against the oracle with the changes applied.  K1 and K2 must
-     launch (launches_by_path "front_door_134m"), the scans never, with at
-     most 2 host syncs per batch; the seconds of the load, the checkpoint
+     launch (launches_by_path "front_door_134m"), no varint kernel, the
+     scans never, with at most 2 host syncs per batch; the seconds of the load, the checkpoint
      and the restart, their spans, peak host RSS and the card's peak are
      logged; the card's memory must come back within 64 MiB.
 
@@ -1674,6 +1686,190 @@ def phase4_bench():
 # ---------------------------------------------------------------- phase 5
 
 
+VARINT_KERNELS = ("count", "decode", "sums", "carries", "apply")
+VARINT_STEP = 1 << 26  # postings per step of a comparison with host arrays
+VARINT_PLAIN_PAIRS = 1 << 22  # pairs of the stream's prefix that the plain version decodes
+VARINT_ROUNDS = 5  # timed launches of each kernel
+
+
+def varint_at_scale(served, dev, log5):
+    """The restart's file tier and csrc/varint_decode.cu's five kernels at
+    the main path's shape: phase 5's one file segment, 2^30 postings.  The
+    served tier (interleaved, its top index) equals the host decoder's
+    columns (filefmt.read_segment: native.decode_postings) with SENTINEL
+    padding; the segment's lazy columns, copied back from that tier, equal
+    them too.  The segment's postings stream is read onto the card again:
+    ops/varint.decode_columns gives the host decoder's columns, decode
+    straight into a fresh interleaved tier with its top index gives the
+    served tier's bytes, and on the stream's first VARINT_PLAIN_PAIRS pairs
+    the kernels equal the plain version (whose int64 temporaries take ~90
+    bytes a posting: the whole stream would not fit).  Then each kernel's
+    device time at the restart's launches (a scan of the stream, a decode
+    into the interleaved tier) by CUDA events around it, beside the bytes
+    it needs and torch.cumsum of both columns as the scans' yardstick.
+    Returns the figures."""
+    import numpy as np
+    import torch
+
+    from acoustid_index_tpu_torch import bench_100m
+    from acoustid_index_tpu_torch.engine import card_tier, filefmt
+    from acoustid_index_tpu_torch.measure import HBM_BYTES_PER_S
+    from acoustid_index_tpu_torch.ops import varint
+    from acoustid_index_tpu_torch.ops.layout import BLOCK
+
+    sentinel = np.uint32(0xFFFFFFFF)
+    out = {}
+    index = bench_100m._index(served[1])
+    snap = index.acquire_reader()
+    check(len(snap.file) == 1 and isinstance(snap.file[0], card_tier.CardSegment),
+          f"phase5: the restart served {[type(s).__name__ for s in snap.file]}, not one CardSegment")
+    seg = snap.file[0]
+    check(seg.file_bytes is None, "phase5: the segment packed alone still holds its file bytes on the card")
+    inter, top = snap.file_view["inter"], snap.file_view["block_index"]
+    n, cap = seg.num_items, inter.shape[0] // 2
+    del snap
+
+    t0 = time.perf_counter()
+    host = filefmt.read_segment(index.data_dir, seg.info)
+    want_h, want_d = host.hashes, host.docids
+    del host
+    out["host_read_s"] = time.perf_counter() - t0
+
+    def padded(col, s, e):
+        w = np.full(e - s, sentinel, np.uint32)
+        k = max(0, min(e, n) - s)
+        w[:k] = col[s : s + k]
+        return w
+
+    def equals_host(label, hashes, docids):
+        """An interleaved tier of cap postings (docids None) or plain int32
+        columns of n on the card against the host columns, SENTINEL past n."""
+        end = cap if docids is None else n
+        for s in range(0, end, VARINT_STEP):
+            e = min(s + VARINT_STEP, end)
+            if docids is None:
+                blk = hashes[2 * s : 2 * e].view(-1, 2, BLOCK).cpu().numpy().view(np.uint32)
+                gh, gd = blk[:, 0].reshape(-1), blk[:, 1].reshape(-1)
+            else:
+                gh = hashes[s:e].cpu().numpy().view(np.uint32)
+                gd = docids[s:e].cpu().numpy().view(np.uint32)
+            check(np.array_equal(gh, padded(want_h, s, e)) and np.array_equal(gd, padded(want_d, s, e)),
+                  f"phase5: {label} differs from the host decoder in postings [{s}, {e})")
+
+    equals_host("the served tier", inter, None)
+    check(np.array_equal(top.cpu().numpy().view(np.uint32), padded(want_h, 0, cap)[::BLOCK]),
+          "phase5: the served tier's top index differs from the host decoder's hashes")
+
+    fetched = card_tier.COLUMNS["columns_fetched"]
+    t0 = time.perf_counter()
+    lazy_h, lazy_d = seg.hashes, seg.docids
+    out["lazy_fetch_s"] = time.perf_counter() - t0
+    check(card_tier.COLUMNS["columns_fetched"] == fetched + 1, "phase5: the lazy columns did not fetch exactly once")
+    check(np.array_equal(lazy_h, want_h) and np.array_equal(lazy_d, want_d),
+          "phase5: the lazy columns differ from the host decoder's")
+    del lazy_h, lazy_d
+
+    # The same stream read onto the card again, and the kernels held to it.
+    again = card_tier.read_segment_card(index.data_dir, seg.info, dev)
+    fb = again.file_bytes
+    data, starts = fb.data, fb.starts
+    nbytes = data.shape[0]
+    h, d = varint.decode_columns(data, n, True)
+    equals_host("decode_columns", h, d)
+    del h, d
+    inter2 = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    top2 = torch.empty(cap // BLOCK, dtype=torch.int32, device=dev)
+    varint.decode(data, starts, n, True, inter2, inter2[BLOCK:], 2 * BLOCK, cap, top2)
+    check(torch.equal(inter2, inter) and torch.equal(top2, top),
+          "phase5: decode into an interleaved tier differs from the served tier")
+    del inter2, top2
+    k = min(VARINT_PLAIN_PAIRS, n)
+    prefix = data[: min(nbytes, 10 * k)].cpu().numpy()  # a pair takes at most 10 bytes
+    cut = int(np.flatnonzero(prefix < 0x80)[2 * k - 1]) + 1
+    t0 = time.perf_counter()
+    ph, pd = varint.decode_columns(torch.from_numpy(prefix[:cut].copy()), k, True)
+    plain_s = time.perf_counter() - t0
+    kh, kd = varint.decode_columns(data[:cut], k, True)
+    for got, plain, want in ((kh, ph, want_h), (kd, pd, want_d)):
+        check(np.array_equal(got.cpu().numpy(), plain.numpy()) and np.array_equal(plain.numpy().view(np.uint32), want[:k]),
+              f"phase5: the kernels, the plain version and the host decoder differ on the stream's first {k} pairs")
+    del ph, pd, kh, kd, prefix, want_h, want_d
+    out["plain"] = {"pairs": k, "bytes": cut, "ms": plain_s * 1e3}
+    log5(f"varint: the served tier, its top index and the lazy columns ({out['lazy_fetch_s']:.2f} s to copy back) "
+         f"equal the host decoder's {n} postings ({out['host_read_s']:.1f} s to read); decode_columns and decode into "
+         f"an interleaved tier, on the stream read again, equal them; the kernels equal the plain version on the first "
+         f"{k} pairs ({plain_s:.2f} s on the host)")
+
+    # Device time of each kernel at the restart's launches (a scan of the
+    # stream, a decode into the interleaved tier), each launched alone
+    # between two CUDA events, in the wrappers' order, VARINT_ROUNDS times;
+    # and the yardstick.
+    nchunks, ntiles = -(-nbytes // varint.CHUNK), -(-n // varint.TILE)
+    inter2 = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    top2 = torch.empty(cap // BLOCK, dtype=torch.int32, device=dev)
+    counts = torch.empty(nchunks, dtype=torch.int32, device=dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(6 * ntiles, dtype=torch.int32, device=dev)
+    hp, dp, stride = inter2.data_ptr(), inter2[BLOCK:].data_ptr(), 2 * BLOCK
+    lib = varint._lib()
+    stream = torch.cuda.current_stream(dev)
+    launch = {
+        "count": lambda: lib.aitpu_varint_count(data.data_ptr(), nbytes, counts.data_ptr(), bad.data_ptr(),
+                                                stream.cuda_stream),
+        "decode": lambda: lib.aitpu_varint_decode(data.data_ptr(), nbytes, starts.data_ptr(), 1, hp, dp, stride, 2 * n,
+                                                  stream.cuda_stream),
+        "sums": lambda: lib.aitpu_varint_sums(hp, dp, stride, n, 1, scratch.data_ptr(), stream.cuda_stream),
+        "carries": lambda: lib.aitpu_varint_carries(n, scratch.data_ptr(), stream.cuda_stream),
+        "apply": lambda: lib.aitpu_varint_apply(hp, dp, stride, n, cap, 1, scratch.data_ptr(), top2.data_ptr(),
+                                                stream.cuda_stream),
+    }
+    cols = torch.zeros(2, n, dtype=torch.int32, device=dev)
+
+    def cumsums():
+        torch.cumsum(cols[0], 0, dtype=torch.int32)
+        torch.cumsum(cols[1], 0, dtype=torch.int32)
+
+    def event_ms(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        rc = fn()
+        b.record(stream)
+        b.synchronize()
+        check(not rc, f"phase5: a varint launch returned cudaError {rc}")
+        return a.elapsed_time(b)
+
+    kernel_ms = {name: [] for name in VARINT_KERNELS}
+    lib_ms = []
+    with torch.cuda.device(dev):
+        for _ in range(VARINT_ROUNDS):
+            for name in VARINT_KERNELS:
+                kernel_ms[name].append(event_ms(launch[name]))
+            lib_ms.append(event_ms(cumsums))
+        check(torch.equal(inter2, inter) and torch.equal(top2, top),
+              "phase5: the kernels launched one by one differ from the served tier")
+    del inter2, top2, counts, bad, scratch, cols, data, starts, fb, again
+    needed = {
+        "count": nbytes + 4 * nchunks,
+        "decode": nbytes + 8 * nchunks + 8 * n,
+        "sums": 8 * n + 12 * ntiles,
+        "carries": 24 * ntiles,
+        "apply": 8 * n + 12 * ntiles + 8 * cap + 4 * (cap // BLOCK),
+    }
+    out["kernels"] = {
+        name: {"ms": sorted(ms)[VARINT_ROUNDS // 2], "ms_all": ms, "needed_bytes": needed[name],
+               "bound_ms": needed[name] / HBM_BYTES_PER_S * 1e3}
+        for name, ms in kernel_ms.items()
+    }
+    # The yardstick of sums, carries and apply: torch.cumsum of both
+    # columns (unsegmented), median of its rounds.
+    out["scans_library_ms"] = sorted(lib_ms)[VARINT_ROUNDS // 2]
+    out["shape"] = {"postings": n, "stream_bytes": nbytes, "cap": cap, "chunks": nchunks, "tiles": ntiles}
+    log5(f"varint: device ms per kernel {json.dumps({k: round(v['ms'], 3) for k, v in out['kernels'].items()})} "
+         f"against byte bounds {json.dumps({k: round(v['bound_ms'], 3) for k, v in out['kernels'].items()})}; "
+         f"torch.cumsum of both columns {out['scans_library_ms']:.3f} ms")
+    return out
+
+
 def phase5_front_door(dev, native_built):
     """The 134M corpus through the front door: bench_100m.load_through_server
     bulk-loads it over HTTP _bulk into the CLI's server, whose maintenance
@@ -1691,8 +1887,10 @@ def phase5_front_door(dev, native_built):
 
     from acoustid_index_tpu_torch import bench_100m
     from acoustid_index_tpu_torch import main as cli
+    from acoustid_index_tpu_torch.engine import card_tier
     from acoustid_index_tpu_torch.ops import block_lookup as bl
     from acoustid_index_tpu_torch.ops import search_kernel as sk
+    from acoustid_index_tpu_torch.ops import varint
     from oracle import oracle_search
 
     t_phase = time.perf_counter()
@@ -1706,8 +1904,21 @@ def phase5_front_door(dev, native_built):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_front_door_")
     served = None
     try:
+        for k in varint.LAUNCHES:
+            varint.LAUNCHES[k] = 0
+        opened = {**card_tier.OPEN, **card_tier.COLUMNS}
         served, fig = bench_100m.load_through_server(dev, tmp, log=lambda msg: log(f"phase5: {msg}"))
         check(fig["file_tier_entries"] == 2**31, f"phase5: the restarted file tier holds {fig['file_tier_entries']} entries")
+        # The restart read its one segment onto the card and built the tier
+        # there: each kernel twice (the postings, the mentioned docs).
+        fig["restart_launches"] = dict(varint.LAUNCHES)
+        fig["restart_counters"] = {k: {**card_tier.OPEN, **card_tier.COLUMNS}[k] - v for k, v in opened.items()}
+        check(fig["restart_launches"] == dict.fromkeys(VARINT_KERNELS, 2),
+              f"phase5: the restart's varint launches {fig['restart_launches']}, not two of each kernel")
+        check(fig["restart_counters"] == {"card_segments": 1, "host_segments": 0, "columns_fetched": 0},
+              f"phase5: the restart's counters {fig['restart_counters']}")
+        log(f"phase5: the restart's varint launches {fig['restart_launches']}, counters {fig['restart_counters']}")
+        fig["varint"] = varint_at_scale(served, dev, lambda msg: log(f"phase5: {msg}"))
         corpus = bench_100m.OracleCorpus()
 
         def oracle(q):
@@ -1719,6 +1930,8 @@ def phase5_front_door(dev, native_built):
         # ---- the main path: counters from zero, reads on both fronts, then writes ----
         for k in bl.LAUNCHES:
             bl.LAUNCHES[k] = 0
+        for k in varint.LAUNCHES:
+            varint.LAUNCHES[k] = 0
         stats0 = dict(sk.STATS)
         fig["serve"] = bench_100m.serve_fronts(served, batches, oracle, lambda msg: log(f"phase5: {msg}"))
         targets, qs, lens = batches[0]
@@ -1729,6 +1942,7 @@ def phase5_front_door(dev, native_built):
         fig["branches"] = {k: sk.STATS[k] - stats0[k] for k in sk.STATS}
         n_batches = sum(fig["branches"][k] for k in ("direct", "matrix", "sort"))
         check_launches(fig["launches"], "phase5")
+        check(not any(varint.LAUNCHES.values()), f"phase5: the served path launched varint kernels {dict(varint.LAUNCHES)}")
         check(fig["branches"]["host_syncs"] <= 2 * n_batches,
               f"phase5: {fig['branches']['host_syncs']} host syncs in {n_batches} batches")
         log(f"phase5: launches on the front-door path {fig['launches']}; batches/branches/host syncs {fig['branches']}")
@@ -1959,6 +2173,24 @@ def main() -> int:
                       "probes/_probe_wavemm.py:108"],
                      of("block_count_staged"), "probe-stride1", launches("block_count_staged"), probe_cu),
     ]
+    # The restart's decode (csrc/varint_decode.cu): no TPU kernel; the
+    # reference decodes the segment file on the host.  Timed and held to
+    # the host decoder and the plain version in phase 5.
+    vfig = front_door["varint"]
+    for name in VARINT_KERNELS:
+        k = vfig["kernels"][name]
+        kernels.append({
+            "name": f"varint_{name}", "route": "cuda", "source": "acoustid_index_tpu_torch/csrc/varint_decode.cu",
+            "replaces": None, "replaces_host": "acoustid_index_tpu_torch/csrc/aitpu_native.cc:82",
+            "also_replaces": [], "launches": front_door["restart_launches"][name],
+            "launches_by_path": {"restart_134m": front_door["restart_launches"][name]},
+            "max_abs_err": 0, "ms": k["ms"], "ms_all": k["ms_all"], "plain_ms": None,
+            "plain_at": vfig["plain"], "bound_ms": k["bound_ms"], "bound_by": "hbm_bytes",
+            "needed_bytes": k["needed_bytes"],
+            "library_ms": None if name in ("count", "decode") else vfig["scans_library_ms"],
+            "library": "none" if name in ("count", "decode") else "torch.cumsum of both columns, for sums+carries+apply",
+            "main_shape": "restart-134m-interleaved", "shape": vfig["shape"],
+        })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
