@@ -15,15 +15,20 @@ traffic to the native search port (and, with `writes`, `_update` to the
 HTTP port) for --seconds; this process only sleeps, or with --trace 1
 reads the program's counters over the window's first part and then
 captures a slice of it with the program's utils/profiling.capture.  The
-load generators run on one physical core of their own (both of its
-hardware threads), the server's process on the others, so that neither
-takes the other's cores.
+profiler's start and stop each hold the served path for seconds, longer
+than a search's timeout, so a traced run pauses the load around both:
+the generators stop sending and their answers in flight come back before
+the profiler starts or stops, and the load resumes once it has (see
+_capture).  An untraced run never pauses.  The load generators run on
+one physical core of their own (both of its hardware threads), the
+server's process on the others, so that neither takes the other's cores.
 Afterwards every answer due in the window is awaited; answers to one
 query must agree byte for byte, and a sample of queries drawn from the
 seed is compared with the plain reference (reference.py).  With writes,
 the final and the previous version of every written doc are searched
 through the native port and compared with the reference over the corpus
-and the newest versions.
+and the newest versions.  A run whose process holds JAX or the JAX package
+once the window has closed gives no result (foreign_modules).
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from . import loadgen, reference, registry, roofline, segfile, traffic, tracing
 RANGE_GROUP = "range"
 SLICE_MAX_S = 3.0
 COUNTED_MAX_S = 20.0  # a traced run's untraced stretch, read for the counters
+DRAIN_SPARE_S = 5.0  # past the traffic's timeout, for the answers in flight at a pause
+FOREIGN = ("jax", "jaxlib", "flax", "acoustid_index_tpu")  # top-level names the run may not hold
 
 
 def log(msg: str) -> None:
@@ -120,6 +127,14 @@ def _host() -> Dict[str, float]:
 
 def _delta(a: dict, b: dict) -> dict:
     return {k: b[k] - a[k] for k in a}
+
+
+def foreign_modules(names=None) -> list:
+    """The top-level names of FOREIGN among the modules `names` (those of
+    sys.modules by default), each compared whole: the port,
+    acoustid_index_tpu_torch, is not the JAX package."""
+    names = list(sys.modules) if names is None else names
+    return sorted({n.partition(".")[0] for n in names} & set(FOREIGN))
 
 
 def _sample(seed: int, indices, k: int):
@@ -225,23 +240,32 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, t_star
         before = _counters(front)
         host_before = _host()
         start_at = time.monotonic() + 0.5
-        runs = [loadgen.Run(exe, mode, front.port, requests, rec, seed, seconds=seconds, start_at=start_at, **kw)]
+        runs = [loadgen.Run(exe, mode, front.port, requests, rec, seed, seconds=seconds, start_at=start_at,
+                            control=trace, **kw)]
         if writes:
             runs.append(loadgen.Run(exe, "writer", server.port, window_writes, rec + "-w", seed,
                                     seconds=seconds, conns=1, period=float(writes["period_s"]), start_at=start_at,
-                                    cpus=load_cpus))
+                                    cpus=load_cpus, control=trace))
         running = runs
         traced = counted = None
         if trace:
             counted = _count(front, start_at, seconds)
-            traced = _capture(front, start_at, seconds, work, registry.kernel_names(RANGE_GROUP, cell.base))
+            traced = _capture(front, runs, seconds, work, float(tr["timeout_ms"]) / 1e3 + DRAIN_SPARE_S)
         time.sleep(max(start_at + seconds - time.monotonic(), 0.0))
         host = _delta(host_before, _host())  # the window's, before the answers are read
         results = [r.wait() for r in runs]
         running = []
         after = _counters(front)
+        if traced is not None:
+            # Read after the window: reducing ~100 MB of trace holds the
+            # interpreter lock for seconds, which the served path needs.
+            traced = _reduce(traced, registry.kernel_names(RANGE_GROUP, cell.base))
         host["gc_tracked_objects"] = len(gc.get_objects())
         search = results[0]
+        if writes:
+            # A traced run's pauses suspend the writer's schedule, so the
+            # writes past the window's end are never sent.
+            n_written = per_cycle + int(results[1].summary["sent"])
         # From the process's start to the window's first request (the load
         # generator's t0 is on the monotonic clock).
         setup_s = search.summary["t0"] - (time.monotonic() - (time.time() - t_start))
@@ -249,7 +273,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, t_star
 
         readback = None
         if writes:
-            readback = _readback(exe, front.port, upd, per_cycle + n_window, index, work)
+            readback = _readback(exe, front.port, upd, n_written, index, work)
         cli.stop_server(server, mi, replicator, front, legacy)
         server = None
         del mi, front
@@ -265,7 +289,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, t_star
         ambiguous = 0
         keep = torch.ones(sample.numel(), dtype=torch.bool)
         if writes:
-            ambiguous_rows = _written_could_match(upd, per_cycle + n_window, queries.hashes[sample], queries.min_score)
+            ambiguous_rows = _written_could_match(upd, n_written, queries.hashes[sample], queries.min_score)
             keep &= ~ambiguous_rows
             ambiguous = int(ambiguous_rows.sum())
         sample = sample[keep]
@@ -297,7 +321,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, t_star
                 ctx["range_bytes_per_query"] = roofline.range_bytes_per_query(corpus, queries.hashes[sample[:1024]])
             metrics = registry.metric_values(cell.per_layer, ctx, cell.base)
 
-        attempted = search.summary["sent_in_window"] + (results[1].summary["sent_in_window"] if writes else 0)
+        attempted = search.summary["sent"] + (results[1].summary["sent"] if writes else 0)
         failed = checks["unanswered_searches"] + checks.get("failed_updates", 0)
         limits = {k: 0 for k in checks}
         detail = {
@@ -314,10 +338,14 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool, t_star
         }
         if traced is not None:
             detail["trace"] = {k: v for k, v in traced.items() if k not in ("device_ops", "idle_gaps")}
+            detail["trace"]["quiet"] = _quiet(traced, [r.summary for r in results])
         if writes:
             detail["update_p50_ms"] = loadgen.percentile_ms(results[1].latencies, 50)
             detail["update_p99_ms"] = loadgen.percentile_ms(results[1].latencies, 99)
         log("detail " + json.dumps(detail, default=str))
+        found = foreign_modules()
+        if found:
+            raise RuntimeError(f"this process holds {', '.join(found)} after the window: the run gives no result")
         out = {
             "correct": all(checks[k] <= limits[k] for k in checks),
             "attempted": int(attempted),
@@ -367,36 +395,99 @@ def _count(front, start_at: float, seconds: float) -> dict:
     return dict(_delta(before, after), window_s=time.monotonic() - t)
 
 
-def _capture(front, start_at: float, seconds: float, work: str, range_kernels) -> Optional[dict]:
+def _pause(load, limit_s: float) -> None:
+    """Pause every load generator and wait up to `limit_s` for each one's
+    answers in flight.  The generators keep the record (their `pauses`);
+    one that did not drain in time shows there, and _quiet reads it."""
+    for r in load:
+        r.pause()
+    for r in load:
+        r.drained(limit_s)
+
+
+def _resume(load) -> None:
+    for r in load:
+        r.resume()
+
+
+def _capture(front, load, seconds: float, work: str, drain_limit_s: float) -> dict:
     """A capture of a slice of the window by the program's own
     utils/profiling.capture (every thread's host operations and the card's
-    activity), reduced.  The profiler takes 7.5-13 s to start and 2.5-8 s
-    to stop, slowing the served path meanwhile, so the slice is timed from
-    when it runs; it follows _count's stretch.  It is the process's only
-    profiler session: a session started and stopped in set-up cut the
-    window's start to milliseconds, but the window's capture then held no
-    kernel at all in 2 of 5 runs on an H100."""
+    activity).  It follows _count's stretch.  The profiler takes
+    7.5-16 s to start and 5-8.5 s to stop on an H100, and holds the served
+    path meanwhile, longer than a search's timeout; so the load generators
+    `load` are paused and drained before the capture is entered, resume
+    once it records, pause and drain again at the slice's end before it
+    stops, and resume once it has stopped.  No request is in flight or
+    falls due while the profiler starts or stops, and every request sent
+    is checked as in an untraced run.  The slice runs from the first resume
+    to the second drain, so the batches counted over it are those whose
+    kernels the capture holds.
+
+    The registry's window (metrics/spans.py) ends where the capture is
+    entered, after the first drain; so the span metrics' stretch ends
+    later than the counters' (_count's) by `span_lag_s`, and takes in the
+    drain's batches and answers (`drain`), while no request is sent.
+
+    The trace file is left for _reduce.  It is the process's only profiler
+    session: a session started and stopped in set-up cut the window's start
+    to milliseconds, but the window's capture then held no kernel at all in
+    2 of 5 runs on an H100."""
     from acoustid_index_tpu_torch.utils import profiling
 
     slice_s = min(SLICE_MAX_S, seconds / 4)
     d = os.path.join(work, "trace")
+    edge, t_edge = _counters(front), time.monotonic()  # where _count's stretch ended
+    _pause(load, drain_limit_s)
+    drain = _delta(edge, _counters(front))
     t_enter = time.monotonic()
     with profiling.capture(d):
+        t_record = time.monotonic()
+        _resume(load)
         before = _counters(front)
         t = time.monotonic()
         time.sleep(slice_s)
+        _pause(load, drain_limit_s)
         after = _counters(front)
-        window = time.monotonic() - t
+        t_stop = time.monotonic()
     t_exit = time.monotonic()
+    _resume(load)
     (path,) = [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".json")]
-    red = tracing.reduce_trace(path, {RANGE_GROUP: range_kernels})
-    red["profiler_start_s"] = t - t_enter
-    red["profiler_stop_s"] = t_exit - t - window
-    red["trace_bytes"] = os.path.getsize(path)
-    os.unlink(path)
     n = _delta(before, after)
-    red.update(slice_s=window, batches=n["batches"], rows=n["answered"])
+    return {"path": path, "profiler_start_s": t_record - t_enter, "profiler_stop_s": t_exit - t_stop,
+            "slice_s": t_stop - t, "batches": n["batches"], "rows": n["answered"],
+            "span_lag_s": t_enter - t_edge, "drain": {"batches": drain["batches"], "answered": drain["answered"]},
+            "stamps": {"profiler_entry": t_enter, "recording_start": t_record, "recording_end": t_stop,
+                       "profiler_exit": t_exit}}
+
+
+def _reduce(captured: dict, range_kernels) -> dict:
+    """_capture's numbers with its trace reduced (tracing.reduce_trace);
+    the trace file is removed."""
+    path = captured.pop("path")
+    t = time.monotonic()
+    red = tracing.reduce_trace(path, {RANGE_GROUP: range_kernels})
+    red.update(captured, trace_bytes=os.path.getsize(path), reduce_s=time.monotonic() - t)
+    os.unlink(path)
     return red
+
+
+def _quiet(traced: dict, summaries) -> dict:
+    """Whether the profiler started and stopped with no request in flight
+    or due: by each load generator's own record of its pauses (searches,
+    then writes), the requests sent and admitted between a pause and its
+    resume, and whether the profiler's entry and exit fell after every
+    drain and before every resume (one clock, CLOCK_MONOTONIC)."""
+    st = traced["stamps"]
+    gen = [s.get("pauses", []) for s in summaries]
+    spans = [(st["profiler_entry"], st["recording_start"]), (st["recording_end"], st["profiler_exit"])]
+    inside = all(len(ps) == 2 for ps in gen)
+    for ps in gen:
+        for p, (a, b) in zip(ps, spans):
+            inside &= p["drained"] is not None and p["resume"] is not None and p["drained"] <= a and b <= p["resume"]
+    return {"sent_while_paused": [sum(p["sent"] for p in ps) for ps in gen],
+            "admitted_while_paused": [sum(p["admitted"] for p in ps) for ps in gen],
+            "profiler_inside_pauses": bool(inside), "paused_s": [s.get("paused_s") for s in summaries]}
 
 
 def _readback(exe: str, port: int, upd, n_updates: int, index: str, work: str) -> dict:

@@ -3,6 +3,8 @@ process of its own.
 
 The binary is built once per checkout into benchmark_torch/_build/ (a
 fixed directory, git-ignored), named by a hash of its source and flags.
+A run started with `control=True` can be paused, drained and resumed
+inside its window (loadgen.cc's --control).
 """
 
 from __future__ import annotations
@@ -10,7 +12,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import select
 import shutil
+import socket
 import struct
 import subprocess
 import time
@@ -56,8 +60,10 @@ class Run:
 
     def __init__(self, exe: str, mode: str, port: int, requests: bytes, record: str, seed: int,
                  seconds: float = 0.0, conns: int = 1, rate: float = 0.0, period: float = 0.0, drain: float = 60.0,
-                 start_at: float = 0.0, cpus=None):
+                 start_at: float = 0.0, cpus=None, control: bool = False):
         self.record = record
+        self._ctl = None
+        child = None
         args = [exe, "--mode", mode, "--port", str(port), "--requests", "-", "--record", record,
                 "--seed", str(seed), "--conns", str(conns), "--seconds", repr(float(seconds)), "--drain", repr(float(drain))]
         if rate:
@@ -66,8 +72,16 @@ class Run:
             args += ["--period", repr(float(period))]
         if start_at:
             args += ["--start-at", repr(float(start_at))]
+        if control:
+            self._ctl, child = socket.socketpair()
+            args += ["--control", str(child.fileno())]
         self.timeout = max(start_at - time.monotonic(), 0.0) + seconds + drain + 60
-        self.proc = subprocess.Popen(args, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        try:
+            self.proc = subprocess.Popen(args, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         pass_fds=(child.fileno(),) if child else ())
+        finally:
+            if child:
+                child.close()
         if cpus:
             try:
                 os.sched_setaffinity(self.proc.pid, cpus)
@@ -80,12 +94,53 @@ class Run:
             pass
         self.proc.stdin = None  # closed: communicate() must not flush it
 
+    def pause(self) -> None:
+        """Stop sending; drained() then waits for the answers in flight."""
+        try:
+            self._ctl.sendall(b"p")
+        except (BrokenPipeError, ConnectionResetError):  # ended: drained() reads None
+            pass
+
+    def drained(self, timeout: float) -> Optional[float]:
+        """The generator's CLOCK_MONOTONIC time at which the last answer
+        in flight came back after pause(), or None if none came in
+        `timeout` seconds."""
+        end = time.monotonic() + timeout
+        buf = b""
+        while not buf.endswith(b"\n"):
+            left = end - time.monotonic()
+            if left <= 0 or not select.select([self._ctl], [], [], left)[0]:
+                return None
+            got = self._ctl.recv(64)
+            if not got:
+                return None
+            buf += got
+        word, t = buf.decode().split()
+        if word != "drained":
+            raise RuntimeError(f"the load generator said {buf!r}")
+        return float(t)
+
+    def resume(self) -> None:
+        """Send again; a generator whose window closed while paused has
+        ended, and there is nothing to resume."""
+        try:
+            self._ctl.sendall(b"r")
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+
+    def _close_control(self) -> None:
+        if self._ctl is not None:
+            self._ctl.close()
+            self._ctl = None
+
     def wait(self) -> Result:
         try:
             out, err = self.proc.communicate(timeout=self.timeout)
         except subprocess.TimeoutExpired:
             self.kill()
             raise RuntimeError("the load generator did not finish in time")
+        finally:
+            self._close_control()
         if self.proc.returncode != 0:
             raise RuntimeError(f"the load generator failed ({self.proc.returncode}): {err.decode(errors='replace')[-2000:]}")
         summary = json.loads(out.decode().strip().splitlines()[-1])
@@ -105,6 +160,7 @@ class Run:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        self._close_control()
 
 
 def run(exe: str, mode: str, port: int, requests: bytes, record: str, seed: int, **kw) -> Result:

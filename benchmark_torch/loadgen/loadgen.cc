@@ -29,12 +29,25 @@
 // request sent in the window.  After the window no request is sent, and
 // the answers in flight are awaited for up to --drain seconds.
 //
+// --control FD (a socket) pauses and resumes the load inside the window:
+// the byte 'p' stops every send (closed: no next request; open and writer:
+// no arrival is admitted and no due request goes out), and once no request
+// is in flight the generator writes "drained <t>\n" back on FD; the byte
+// 'r' resumes it.  A pause suspends the open and writer schedules: every
+// due time not yet reached, and those of due requests not yet sent, move
+// on by the pause's length, so nothing falls due while paused and a
+// latency timed from due counts no paused time.  The window's end does
+// not move.  Each pause is reported with the requests sent and admitted
+// while it lasted (0 by construction).
+//
 // stdout, one JSON line: sent, answered, answered_in_window, non200,
 // unanswered, inconsistent, window_s, late_p99_ms, late_max_ms, t0, the
 // window's start (CLOCK_MONOTONIC seconds), per_s, the 200 answers
 // received in each whole second of the window (a stall shows as a dip),
-// and cpu_s, the generator's own CPU seconds (a share near run_s means it
-// was saturated).
+// cpu_s, the generator's own CPU seconds (a share near run_s means it
+// was saturated), paused_s, the paused seconds inside the window, and
+// pauses: pause, drained and resume (CLOCK_MONOTONIC seconds, null where
+// it never came), sent, admitted.
 
 #include <netinet/in.h>
 #include <netinet/tcp.h>
@@ -88,13 +101,24 @@ struct Conn {
   bool busy = false;
   uint64_t req = 0;     // request index in flight
   double t_due = 0.0;   // latency origin
-  bool in_window = false;
   const char* out = nullptr;
   size_t out_len = 0;
   bool want_write = false;
 };
 
+struct Pause {
+  double pause = 0.0, drained = -1.0, resume = -1.0;
+  uint64_t sent = 0, admitted = 0;
+};
+
 bool read_all(FILE* f, void* dst, size_t n) { return std::fread(dst, 1, n, f) == n; }
+
+std::string stamp_json(double t) {
+  if (t < 0) return "null";
+  char b[32];
+  std::snprintf(b, sizeof(b), "%.6f", t);
+  return b;
+}
 
 int fail(const char* msg) {
   std::fprintf(stderr, "loadgen: %s: %s\n", msg, std::strerror(errno));
@@ -105,7 +129,7 @@ int fail(const char* msg) {
 
 int main(int argc, char** argv) {
   std::string mode = "closed";
-  int port = 0, conns_n = 256;
+  int port = 0, conns_n = 256, control = -1;
   double seconds = 10.0, rate = 0.0, period = 0.0, drain = 60.0, start_at = 0.0;
   const char* requests_path = nullptr;
   const char* record = nullptr;
@@ -121,6 +145,7 @@ int main(int argc, char** argv) {
     else if (!std::strcmp(k, "--period")) period = std::atof(v);
     else if (!std::strcmp(k, "--drain")) drain = std::atof(v);
     else if (!std::strcmp(k, "--start-at")) start_at = std::atof(v);
+    else if (!std::strcmp(k, "--control")) control = std::atoi(v);
     else if (!std::strcmp(k, "--requests")) requests_path = v;
     else if (!std::strcmp(k, "--record")) record = v;
     else if (!std::strcmp(k, "--seed")) seed = std::strtoull(v, nullptr, 10);
@@ -131,7 +156,7 @@ int main(int argc, char** argv) {
       (open && !(rate > 0)) || (writer && (!(period > 0) || conns_n != 1))) {
     std::fprintf(stderr,
                  "usage: loadgen --mode closed|open|writer|once --port P --requests FILE --record PREFIX "
-                 "[--conns N] [--seconds S] [--rate R] [--period S] [--drain S] [--seed K]\n");
+                 "[--conns N] [--seconds S] [--rate R] [--period S] [--drain S] [--seed K] [--start-at T] [--control FD]\n");
     return 2;
   }
 
@@ -158,6 +183,14 @@ int main(int argc, char** argv) {
     ev.events = EPOLLIN;
     ev.data.ptr = nullptr;  // the timer
     if (epoll_ctl(ep, EPOLL_CTL_ADD, tfd, &ev) < 0) return fail("epoll_ctl timer");
+  }
+  static char control_tag;
+  if (control >= 0) {
+    fcntl(control, F_SETFL, fcntl(control, F_GETFL, 0) | O_NONBLOCK);
+    epoll_event ev{};
+    ev.events = EPOLLIN;
+    ev.data.ptr = &control_tag;
+    if (epoll_ctl(ep, EPOLL_CTL_ADD, control, &ev) < 0) return fail("epoll_ctl control");
   }
 
   std::vector<Conn> conns(conns_n);
@@ -193,7 +226,6 @@ int main(int argc, char** argv) {
   std::vector<double> lates;
   lats.reserve(1 << 20);
   uint64_t sent = 0, answered = 0, answered_in_window = 0, non200 = 0, inconsistent = 0;
-  uint64_t in_window_sent = 0, in_window_answered = 0;
 
   const double t0 = now_s();
   const double deadline = t0 + seconds;
@@ -202,7 +234,10 @@ int main(int argc, char** argv) {
   // once sends every request at t0.
   std::deque<std::pair<uint64_t, double>> due;  // (request index, due time)
   double next_arrival = t0;
+  double write_base = t0;  // writer: request k is due at write_base + k * period
   uint64_t next_seq = 0;  // writer / once: next request index
+  bool paused = false, drained_told = false;
+  std::vector<Pause> pauses;
   auto arm_timer = [&](double at) {
     itimerspec its{};
     if (at > 0) {
@@ -213,20 +248,22 @@ int main(int argc, char** argv) {
     timerfd_settime(tfd, TFD_TIMER_ABSTIME, &its, nullptr);
   };
   auto admit_due = [&](double now) {
+    const size_t before = due.size();
     if (open) {
       while (next_arrival < deadline && next_arrival <= now) {
         due.emplace_back(rng.next() % n_req, next_arrival);
         next_arrival += -std::log(rng.uniform()) / rate;
       }
     } else if (writer) {
-      while (next_seq < n_req && t0 + double(next_seq) * period < deadline &&
-             t0 + double(next_seq) * period <= now) {
-        due.emplace_back(next_seq, t0 + double(next_seq) * period);
+      while (next_seq < n_req && write_base + double(next_seq) * period < deadline &&
+             write_base + double(next_seq) * period <= now) {
+        due.emplace_back(next_seq, write_base + double(next_seq) * period);
         next_seq++;
       }
     } else if (once) {
       while (next_seq < n_req) due.emplace_back(next_seq, t0), next_seq++;
     }
+    if (paused) pauses.back().admitted += due.size() - before;
   };
 
   auto set_write = [&](Conn& c, bool on) {
@@ -254,15 +291,15 @@ int main(int argc, char** argv) {
     c.busy = true;
     c.req = idx;
     c.t_due = t_due;
-    c.in_window = once || t_due < deadline;
     c.out = reqs[idx].data();
     c.out_len = reqs[idx].size();
     sent++;
-    if (c.in_window) in_window_sent++;
+    if (paused) pauses.back().sent++;
     if (!closed) lates.push_back(now - t_due);
     return pump_out(c);
   };
   auto dispatch = [&](double now) -> bool {
+    if (paused) return true;
     for (auto& c : conns) {
       if (c.busy) continue;
       if (closed) {
@@ -277,11 +314,50 @@ int main(int argc, char** argv) {
     }
     return true;
   };
-  auto pending = [&]() {
+  auto in_flight = [&]() {
     for (auto& c : conns) if (c.busy) return true;
-    return !due.empty() || (open && next_arrival < deadline) ||
-           ((writer && next_seq < n_req && t0 + double(next_seq) * period < deadline) ||
+    return false;
+  };
+  auto pending = [&]() {
+    return in_flight() || !due.empty() || (open && next_arrival < deadline) ||
+           ((writer && next_seq < n_req && write_base + double(next_seq) * period < deadline) ||
             (once && next_seq < n_req));
+  };
+
+  // Commands from --control: 'p' pauses, 'r' resumes; the far end closing
+  // resumes too, so a run whose controller went away still ends.
+  auto command = [&](char k, double now) {
+    if (k == 'p' && !paused) {
+      paused = true;
+      drained_told = false;
+      Pause p;
+      p.pause = now;
+      pauses.push_back(p);
+    } else if (k == 'r' && paused) {
+      const double len = now - pauses.back().pause;
+      paused = false;
+      pauses.back().resume = now;
+      for (auto& d : due) d.second += len;
+      next_arrival += len;
+      write_base += len;
+    }
+  };
+  auto on_control = [&](double now) -> bool {
+    char buf[64];
+    for (;;) {
+      ssize_t got = ::read(control, buf, sizeof(buf));
+      if (got > 0) {
+        for (ssize_t i = 0; i < got; i++) command(buf[i], now);
+        continue;
+      }
+      if (got == 0) {
+        command('r', now);
+        epoll_ctl(ep, EPOLL_CTL_DEL, control, nullptr);
+        control = -1;
+        return true;
+      }
+      return errno == EAGAIN || errno == EWOULDBLOCK || errno == EINTR;
+    }
   };
 
   std::vector<epoll_event> evs(512);
@@ -292,11 +368,11 @@ int main(int argc, char** argv) {
   for (;;) {
     double now = now_s();
     bool sending = (closed && now < deadline) || (!closed && pending());
-    if (!sending && !pending()) break;
+    if (!paused && !sending && !pending()) break;
     if (now >= deadline && now > drain_until) break;
     if (once && now > t0 + drain) break;
-    double wake = closed ? deadline : (open ? std::min(next_arrival, deadline) : (writer ? t0 + double(next_seq) * period : 0.0));
-    arm_timer(wake > now ? wake : 0.0);
+    double wake = closed ? deadline : (open ? std::min(next_arrival, deadline) : (writer ? write_base + double(next_seq) * period : 0.0));
+    arm_timer(!paused && wake > now ? wake : 0.0);
     int n = epoll_wait(ep, evs.data(), int(evs.size()), 100);
     if (n < 0) {
       if (errno == EINTR) continue;
@@ -307,6 +383,10 @@ int main(int argc, char** argv) {
       if (evs[i].data.ptr == nullptr) {
         uint64_t x;
         while (::read(tfd, &x, 8) > 0) {}
+        continue;
+      }
+      if (evs[i].data.ptr == &control_tag) {
+        if (!on_control(now)) return fail("read control");
         continue;
       }
       Conn& c = *static_cast<Conn*>(evs[i].data.ptr);
@@ -344,10 +424,7 @@ int main(int argc, char** argv) {
           if (status == 200 && b < per_s.size()) per_s[b]++;
         }
         if (status != 200) non200++;
-        if (c.in_window) {
-          in_window_answered++;
-          lats.push_back(status == 200 ? t_done - c.t_due : std::numeric_limits<double>::infinity());
-        }
+        lats.push_back(status == 200 ? t_done - c.t_due : std::numeric_limits<double>::infinity());
         if (first_status[c.req] == 0) {
           first_status[c.req] = status;
           first_body[c.req] = std::move(body);
@@ -357,11 +434,21 @@ int main(int argc, char** argv) {
         c.busy = false;
       }
     }
-    admit_due(now);
+    if (!paused) admit_due(now);
     if (!dispatch(now)) return fail("send");
+    if (paused && !drained_told && !in_flight()) {
+      drained_told = true;
+      pauses.back().drained = now_s();
+      std::string msg = "drained " + stamp_json(pauses.back().drained) + "\n";
+      if (::write(control, msg.data(), msg.size()) < 0) return fail("write control");
+    }
   }
   const double t_end = now_s();
-  uint64_t unanswered = in_window_sent - in_window_answered;
+  // Every request sent was due in the window: closed sends only before
+  // the deadline, open and writer admit only what falls due before it (a
+  // pause that moves a held request's due time past the deadline does not
+  // take it out of the window).
+  uint64_t unanswered = sent - answered;
   // Requests due in the window that were never sent count as unanswered too.
   if (!closed) {
     admit_due(deadline);
@@ -402,13 +489,27 @@ int main(int argc, char** argv) {
     per_s_json += std::to_string(per_s[i]);
   }
   per_s_json += "]";
+  double paused_s = 0.0;
+  std::string pauses_json = "[";
+  for (size_t i = 0; i < pauses.size(); i++) {
+    const Pause& p = pauses[i];
+    const double until = p.resume < 0 ? t_end : p.resume;
+    paused_s += std::max(0.0, std::min(until, deadline) - std::max(p.pause, t0));
+    if (i) pauses_json += ", ";
+    pauses_json += "{\"pause\": " + stamp_json(p.pause) + ", \"drained\": " + stamp_json(p.drained) +
+                   ", \"resume\": " + stamp_json(p.resume) + ", \"sent\": " + std::to_string(p.sent) +
+                   ", \"admitted\": " + std::to_string(p.admitted) + "}";
+  }
+  pauses_json += "]";
   std::printf(
-      "{\"mode\": \"%s\", \"sent\": %llu, \"sent_in_window\": %llu, \"answered\": %llu, "
+      "{\"mode\": \"%s\", \"sent\": %llu, \"answered\": %llu, "
       "\"answered_in_window\": %llu, \"non200\": %llu, \"unanswered\": %llu, \"inconsistent\": %llu, "
-      "\"window_s\": %.6f, \"run_s\": %.6f, \"late_p99_ms\": %.6f, \"late_max_ms\": %.6f, \"t0\": %.6f, \"cpu_s\": %.6f, \"per_s\": %s}\n",
-      mode.c_str(), (unsigned long long)sent, (unsigned long long)in_window_sent, (unsigned long long)answered,
+      "\"window_s\": %.6f, \"run_s\": %.6f, \"late_p99_ms\": %.6f, \"late_max_ms\": %.6f, \"t0\": %.6f, \"cpu_s\": %.6f, \"per_s\": %s, "
+      "\"paused_s\": %.6f, \"pauses\": %s}\n",
+      mode.c_str(), (unsigned long long)sent, (unsigned long long)answered,
       (unsigned long long)answered_in_window, (unsigned long long)non200, (unsigned long long)unanswered,
-      (unsigned long long)inconsistent, seconds, t_end - t0, late_p99, late_max, t0, cpu_s, per_s_json.c_str());
+      (unsigned long long)inconsistent, seconds, t_end - t0, late_p99, late_max, t0, cpu_s, per_s_json.c_str(),
+      paused_s, pauses_json.c_str());
   for (auto& c : conns) ::close(c.fd);
   ::close(tfd);
   ::close(ep);

@@ -1,12 +1,19 @@
 """The command refuses to run without the cards its cell asks for, and
-prints no result: it never falls back to the CPU."""
+prints no result: it never falls back to the CPU.  Nor does a run whose
+process holds JAX or the JAX package once its window has closed."""
 
 import os
 import shutil
 import subprocess
 import sys
+import time
+import types
 
-from .conftest import HERE_PKG, ROOT
+import pytest
+
+from benchmark_torch import harness, registry
+
+from .conftest import HERE_PKG, ROOT, small
 
 
 def _run(cwd):
@@ -24,3 +31,31 @@ def test_no_card_no_result(tmp_path):
     shutil.copytree(HERE_PKG, tmp_path / "benchmark_torch", ignore=shutil.ignore_patterns("_build", "__pycache__"))
     p = _run(tmp_path)
     assert p.returncode != 0 and p.stdout == ""
+
+
+def test_foreign_modules_compare_whole_top_level_names():
+    names = ["jax", "jaxlib.xla_client", "flax.linen", "acoustid_index_tpu.native", "acoustid_index_tpu_torch.main",
+             "jaxtyping", "numpy"]
+    assert harness.foreign_modules(names) == ["acoustid_index_tpu", "flax", "jax", "jaxlib"]
+    assert harness.foreign_modules(["acoustid_index_tpu_torch", "acoustid_index_tpu_torch.ops", "flaxen"]) == []
+
+
+@pytest.mark.parametrize("name", ["jax", "acoustid_index_tpu.native"])
+def test_a_run_that_loads_jax_gives_no_result(manifest, monkeypatch, name):
+    """A module of JAX or of the JAX package, loaded by the served path
+    inside a small run, leaves the run with no result."""
+    assert harness.foreign_modules() == []
+
+    def plant(mi, front):
+        launch = front._launch_group
+
+        def launch_and_load(*a, **k):
+            if name not in sys.modules:
+                monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+            return launch(*a, **k)
+
+        front._launch_group = launch_and_load
+
+    cell = small(registry.cell(manifest, "fp10m.search"))
+    with pytest.raises(RuntimeError, match=f"holds {name.partition('.')[0]} after the window"):
+        harness.run_cell(cell, 2**31 + 77, 2.0, False, time.time(), device="cpu", faults=plant)
